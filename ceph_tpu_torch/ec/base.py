@@ -1,0 +1,172 @@
+"""ErasureCode base class: shared padding / mapping / decode plumbing.
+
+Behavioral mirror of reference src/erasure-code/ErasureCode.{h,cc}: SIMD_ALIGN
+chunk padding (ErasureCode.cc:30), encode_prepare split+pad (:139-174), the
+generic encode (:176-192) and decode fallback (:200-233), greedy
+minimum_to_decode (:91-108), profile coercion helpers (:280-328), and the
+"mapping" profile key (:to_mapping).  Copy of ``ceph_tpu/ec/base.py``.
+"""
+
+from __future__ import annotations
+
+import errno
+from typing import Dict, Iterable, List, Mapping, Set
+
+import numpy as np
+
+from ceph_tpu_torch.ec.interface import ECError, ErasureCodeInterface, ErasureCodeProfile
+
+SIMD_ALIGN = 32
+
+
+class ErasureCode(ErasureCodeInterface):
+    def __init__(self):
+        self.k = 0
+        self.m = 0
+        self.w = 8
+        self.chunk_mapping: List[int] = []
+        self._profile: ErasureCodeProfile = {}
+        self.rule_root = "default"
+        self.rule_failure_domain = "host"
+        self.rule_device_class = ""
+
+    # -- profile plumbing ---------------------------------------------------
+
+    def init(self, profile: ErasureCodeProfile) -> None:
+        self.rule_root = self.to_string("crush-root", profile, "default")
+        self.rule_failure_domain = self.to_string(
+            "crush-failure-domain", profile, "host"
+        )
+        self.rule_device_class = self.to_string("crush-device-class", profile, "")
+        self.parse(profile)
+        self._profile = profile
+        self.prepare()
+
+    def parse(self, profile: ErasureCodeProfile) -> None:
+        self.to_mapping(profile)
+
+    def prepare(self) -> None:
+        ...
+
+    def get_profile(self) -> ErasureCodeProfile:
+        return self._profile
+
+    @staticmethod
+    def to_int(name: str, profile: ErasureCodeProfile, default: str) -> int:
+        if not profile.get(name):
+            profile[name] = default
+        try:
+            return int(profile[name])
+        except ValueError:
+            raise ECError(errno.EINVAL, f"could not convert {name}={profile[name]}")
+
+    @staticmethod
+    def to_bool(name: str, profile: ErasureCodeProfile, default: str) -> bool:
+        if not profile.get(name):
+            profile[name] = default
+        return profile[name] in ("yes", "true")
+
+    @staticmethod
+    def to_string(name: str, profile: ErasureCodeProfile, default: str) -> str:
+        if not profile.get(name):
+            profile[name] = default
+        return profile[name]
+
+    def to_mapping(self, profile: ErasureCodeProfile) -> None:
+        if "mapping" in profile:
+            mapping = profile["mapping"]
+            data_pos = [i for i, c in enumerate(mapping) if c == "D"]
+            coding_pos = [i for i, c in enumerate(mapping) if c != "D"]
+            self.chunk_mapping = data_pos + coding_pos
+
+    @staticmethod
+    def sanity_check_k(k: int) -> None:
+        if k < 2:
+            raise ECError(errno.EINVAL, f"k={k} must be >= 2")
+
+    # -- geometry -----------------------------------------------------------
+
+    def get_chunk_count(self) -> int:
+        return self.k + self.m
+
+    def get_data_chunk_count(self) -> int:
+        return self.k
+
+    def get_chunk_mapping(self) -> List[int]:
+        return self.chunk_mapping
+
+    def stripe_unit(self, default: int) -> int:
+        """Smallest cluster stripe unit >= ``default`` this codec's batch
+        layout accepts (packet-interleaved codecs need multiples of
+        w*packetsize; wide fields need word multiples).  Used at pool
+        create so profile defaults always compose."""
+        return default
+
+    # -- minimum_to_decode (greedy base semantics) --------------------------
+
+    def minimum_to_decode(
+        self, want_to_read: Set[int], available_chunks: Set[int]
+    ) -> Set[int]:
+        if want_to_read <= available_chunks:
+            return set(want_to_read)
+        k = self.get_data_chunk_count()
+        if len(available_chunks) < k:
+            raise ECError(errno.EIO, "not enough chunks to decode")
+        return set(sorted(available_chunks)[:k])
+
+    # -- encode / decode ----------------------------------------------------
+
+    def encode_prepare(self, raw: bytes) -> Dict[int, np.ndarray]:
+        k = self.get_data_chunk_count()
+        m = self.get_chunk_count() - k
+        blocksize = self.get_chunk_size(len(raw))
+        if blocksize == 0:
+            # zero-length object: k+m empty chunks (the reference never
+            # encodes empty objects; this keeps the API total)
+            return {
+                self.chunk_index(i): np.zeros(0, dtype=np.uint8)
+                for i in range(k + m)
+            }
+        padded_chunks = k - len(raw) // blocksize
+        encoded: Dict[int, np.ndarray] = {}
+        raw_arr = np.frombuffer(raw, dtype=np.uint8)
+        for i in range(k - padded_chunks):
+            encoded[self.chunk_index(i)] = raw_arr[
+                i * blocksize : (i + 1) * blocksize
+            ].copy()
+        if padded_chunks:
+            remainder = len(raw) - (k - padded_chunks) * blocksize
+            buf = np.zeros(blocksize, dtype=np.uint8)
+            buf[:remainder] = raw_arr[(k - padded_chunks) * blocksize :]
+            encoded[self.chunk_index(k - padded_chunks)] = buf
+            for i in range(k - padded_chunks + 1, k):
+                encoded[self.chunk_index(i)] = np.zeros(blocksize, dtype=np.uint8)
+        for i in range(k, k + m):
+            encoded[self.chunk_index(i)] = np.zeros(blocksize, dtype=np.uint8)
+        return encoded
+
+    def encode(
+        self, want_to_encode: Iterable[int], data: bytes
+    ) -> Dict[int, np.ndarray]:
+        want = set(want_to_encode)
+        encoded = self.encode_prepare(data)
+        self.encode_chunks(encoded)
+        return {i: c for i, c in encoded.items() if i in want}
+
+    def decode(
+        self, want_to_read: Set[int], chunks: Mapping[int, np.ndarray]
+    ) -> Dict[int, np.ndarray]:
+        have = set(chunks)
+        if want_to_read <= have:
+            return {i: np.asarray(chunks[i]) for i in want_to_read}
+        k = self.get_data_chunk_count()
+        m = self.get_chunk_count() - k
+        blocksize = len(next(iter(chunks.values())))
+        decoded: Dict[int, np.ndarray] = {}
+        for i in range(k + m):
+            if i in chunks:
+                decoded[i] = np.asarray(chunks[i], dtype=np.uint8)
+            else:
+                decoded[i] = np.zeros(blocksize, dtype=np.uint8)
+        self.decode_chunks(want_to_read, chunks, decoded)
+        return {i: decoded[i] for i in want_to_read}

@@ -1,0 +1,155 @@
+"""Host-side helpers for bit-planar AT-REST shards.
+
+Copy of ``ceph_tpu/ec/planar_store.py`` (numpy only).
+
+``ec/planar.py`` made packed bit-planes the TRAVEL format of a stripe
+batch; this module makes them the format EC shard objects LIVE in.  An
+at-rest planar shard of L bytes is stored as its (8, L/8) packed
+bit-plane matrix serialized row-major — exactly L bytes, so store
+accounting, capacity admission and wire sizes are unchanged — with
+``gf8.bytes_to_planar`` semantics: plane row t, packed byte i holds bit
+t of shard bytes 8i..8i+7, byte 8i+u at bit u.
+
+Everything here is plain numpy on shard-sized payloads (the tiny host
+mirror of the device gf8 functions, bit-exact with them by construction):
+pack/unpack at the sanctioned ingest/egress seams, a host GF(2)
+plane-row matmul (the port's stripe layer runs ``gf8.planar_matmul`` on
+its device instead), and the column splice RMW/append deltas land
+through.  Each helper that
+crosses the layout boundary books the ``ec_planar_*`` KERNELS counters
+(ops/profiling.record_planar_at_rest) — the steady-state contract is
+that ``unseamed`` stays 0, pinned by test.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ceph_tpu_torch.ops.profiling import record_planar_at_rest
+from ceph_tpu_torch.utils.perf import KERNELS
+
+# the store/wire layout tag carried by Obj.layout / message ``layout``
+# fields; None (or "") means classic byte-at-rest
+LAYOUT_PLANAR = "planar8"
+
+# planar packing quantum in BYTES: one packed plane byte spans 8 shard
+# bytes, so every offset/length crossing the planar store API must be a
+# multiple of 8 (EC chunk offsets are stripe-unit multiples, and the
+# planar gate requires unit % 8 == 0)
+QUANTUM = 8
+
+_SHIFTS = np.arange(8, dtype=np.uint8)
+_WEIGHTS = (1 << np.arange(8)).astype(np.uint32)
+
+
+def rows_to_planes(rows: np.ndarray) -> np.ndarray:
+    """(c, L) uint8 byte rows -> (c*8, L/8) packed bit-planes.
+
+    Host-numpy mirror of the device ``gf8.bytes_to_planar`` (same
+    formula, same LSB-first packing) so the CPU-backend steady state
+    never touches the device runtime for a layout change."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    c, l = rows.shape
+    if l % 8:
+        raise ValueError(f"row length {l} not a multiple of 8")
+    nb = l // 8
+    d = rows.reshape(c, nb, 8)                                # (c, i, u)
+    bits = (d[:, None, :, :] >> _SHIFTS[None, :, None, None]) & 1
+    planes = (bits.astype(np.uint32)
+              * _WEIGHTS[None, None, None, :]).sum(axis=3)    # (c, t, i)
+    return planes.reshape(c * 8, nb).astype(np.uint8)
+
+
+def planes_to_rows(planes: np.ndarray) -> np.ndarray:
+    """(c*8, nb) packed bit-planes -> (c, 8*nb) byte rows (inverse)."""
+    planes = np.ascontiguousarray(planes, dtype=np.uint8)
+    c8, nb = planes.shape
+    c = c8 // 8
+    p = planes.reshape(c, 8, nb)                              # (c, t, i)
+    bits = (p[:, :, :, None] >> _SHIFTS[None, None, None, :]) & 1
+    by = (bits.astype(np.uint32)
+          * _WEIGHTS[None, :, None, None]).sum(axis=1)        # (c, i, u)
+    return by.reshape(c, nb * 8).astype(np.uint8)
+
+
+# -- single-shard blob views (the store/wire serialization) -----------------
+
+def shard_to_planes(blob, *, seam: Optional[str] = None) -> np.ndarray:
+    """Shard BYTES -> its (8, L/8) at-rest plane matrix.
+
+    This is a layout conversion: callers must name the ``seam`` that
+    sanctions it (``ingest``/``egress``/``relayout``/``unseamed``) so
+    the conversion books against the right contract counter."""
+    row = np.frombuffer(bytes(blob), dtype=np.uint8).reshape(1, -1)
+    if seam is not None:
+        record_planar_at_rest(seam, row.shape[1])
+    return rows_to_planes(row).reshape(8, -1)
+
+
+def planes_to_shard(planes: np.ndarray, *, seam: Optional[str] = None) -> bytes:
+    """(8, nb) plane matrix -> the shard's logical BYTES."""
+    planes = np.ascontiguousarray(planes, dtype=np.uint8).reshape(8, -1)
+    if seam is not None:
+        record_planar_at_rest(seam, planes.size)
+    return planes_to_rows(planes).tobytes()
+
+
+def blob_to_planes(blob) -> np.ndarray:
+    """At-rest plane BLOB (row-major serialization) -> (8, L/8) view.
+
+    NOT a layout conversion — the blob already is the plane matrix."""
+    arr = np.frombuffer(bytes(blob), dtype=np.uint8)
+    if arr.size % 8:
+        raise ValueError(f"planar blob size {arr.size} not 8-row")
+    return arr.reshape(8, arr.size // 8)
+
+
+def planes_to_blob(planes: np.ndarray) -> bytes:
+    """(8, nb) plane matrix -> its at-rest serialization (row-major)."""
+    return np.ascontiguousarray(planes, dtype=np.uint8).tobytes()
+
+
+# -- plane-domain compute (CPU-backend steady state) ------------------------
+
+def planar_matmul_host(bitmat: np.ndarray, planes: np.ndarray) -> np.ndarray:
+    """GF(2) matmul on packed bit-planes, host numpy.
+
+    ``bitmat`` is a {0,1} bit-matrix from ``gf8.expand_bitmatrix`` (or a
+    decode bitmat); packed plane bytes are 8 independent bit columns, so
+    the mod-2 row combination is a plain XOR-reduce over the selected
+    plane rows — bit-exact with ``gf8.planar_matmul`` by GF(2)
+    linearity.  Row counts are (k+m)*8-ish (tiny); columns carry the
+    payload."""
+    bitmat = np.asarray(bitmat, dtype=np.uint8)
+    planes = np.ascontiguousarray(planes, dtype=np.uint8)
+    KERNELS.inc("ec_host_planar_matmul_calls")
+    KERNELS.inc("ec_host_planar_matmul_bytes", int(planes.size))
+    out = np.zeros((bitmat.shape[0], planes.shape[1]), dtype=np.uint8)
+    for r in range(bitmat.shape[0]):
+        sel = np.nonzero(bitmat[r])[0]
+        if sel.size:
+            out[r] = np.bitwise_xor.reduce(planes[sel], axis=0)
+    return out
+
+
+def splice_columns(old: Optional[np.ndarray], col_off: int,
+                   window: np.ndarray, total_cols: int) -> np.ndarray:
+    """Land a plane-column window into an at-rest shard plane matrix.
+
+    ``old`` is the current (8, oc) matrix (None when the object is
+    new); ``window`` is the delta's (8, wc) planes landing at column
+    ``col_off`` (byte offset / 8); the result is zero-extended or
+    truncated to ``total_cols`` — the planar analog of the byte path's
+    write+truncate pair.  Pure column ops: no layout conversion."""
+    window = np.ascontiguousarray(window, dtype=np.uint8).reshape(8, -1)
+    wc = window.shape[1]
+    out = np.zeros((8, total_cols), dtype=np.uint8)
+    if old is not None and old.size:
+        oc = min(old.shape[1], total_cols)
+        out[:, :oc] = old[:, :oc]
+    end = min(col_off + wc, total_cols)
+    if end > col_off:
+        out[:, col_off:end] = window[:, : end - col_off]
+    return out

@@ -1,0 +1,107 @@
+"""The port stands alone and defaults to the card.
+
+- importing the package pulls in neither JAX nor any ``ceph_tpu`` module;
+- no source file of the package imports jax, ceph_tpu or google_crc32c;
+- an entry point asked for no device runs on CUDA, and raises where there
+  is none instead of running on the CPU;
+- the B1 wrapper never answers a non-CPU tensor with its plain version.
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import ceph_tpu_torch
+from ceph_tpu_torch.ec import codec as pcodec
+from ceph_tpu_torch.ec import factory
+from ceph_tpu_torch.ops import _build, gf8_cuda
+
+PKG = pathlib.Path(ceph_tpu_torch.__file__).parent
+REPO = PKG.parent
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(jax\b|ceph_tpu\b(?!_torch)|google_crc32c\b)",
+    re.MULTILINE)
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = (
+        "import sys\n"
+        "import ceph_tpu_torch, ceph_tpu_torch.ec, ceph_tpu_torch.ops.gf8_cuda\n"
+        "import ceph_tpu_torch.ec.stripe, ceph_tpu_torch.ops.crc32c\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'ceph_tpu' or m.startswith('ceph_tpu.')"
+        " or m == 'google_crc32c']\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+def test_no_source_imports_reference_or_jax():
+    offenders = []
+    for path in sorted(PKG.rglob("*.py")):
+        if "_build" in path.relative_to(PKG).parts:
+            continue                      # kernel build cache, not source
+        text = path.read_text()
+        for m in _FORBIDDEN.finditer(text):
+            offenders.append(f"{path.relative_to(REPO)}: {m.group(0).strip()}")
+    assert not offenders, offenders
+    # the scan itself catches what it is meant to catch
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("    from ceph_tpu.ops import gf8")
+    assert not _FORBIDDEN.search("from ceph_tpu_torch.ops import gf8")
+
+
+def test_factory_defaults_to_cuda_and_refuses_cpu_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        factory({"plugin": "isa", "k": "4", "m": "2"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pcodec.engine_from_reference(np.ones((2, 4), dtype=np.uint8), 4, 2)
+    assert pcodec.resolve_device("cpu").type == "cpu"
+    assert factory({"plugin": "isa", "k": "4", "m": "2"},
+                   device="cpu").device.type == "cpu"
+
+
+def test_b1_wrapper_refuses_instead_of_falling_back(monkeypatch, tmp_path):
+    """A request off the CPU launches the kernel or raises: here the
+    kernel cannot be built (no nvcc, no card), and nothing quietly runs
+    the plain version instead."""
+    bm = torch.ones((8, 8), dtype=torch.uint8, device="meta")
+    planes = torch.zeros((8, 16), dtype=torch.uint8, device="meta")
+    before = gf8_cuda.launches
+    with pytest.raises(ValueError):
+        gf8_cuda.planar_matmul(bm, planes)
+    with pytest.raises(ValueError):
+        gf8_cuda.planar_matmul(bm, torch.zeros((8, 16), dtype=torch.uint8))
+    assert gf8_cuda.launches == before
+    # the CUDA branch needs the built kernel; building raises without nvcc
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has nvcc at the default path")
+    monkeypatch.setattr(gf8_cuda, "_fn", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        gf8_cuda._kernel()
+
+
+def test_kernel_sources_and_build_flags_target_hopper():
+    srcs = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
+    assert srcs == ["gf8_planar.cu"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    text = (PKG / "csrc" / "gf8_planar.cu").read_text()
+    assert 'extern "C" int gf8_planar_matmul' in text
+    assert "_planar_kernel" in text       # names the TPU kernel it replaces
