@@ -1,8 +1,8 @@
-"""Erasure-code framework of the port: interface, registry, ISA codec.
+"""Erasure-code framework of the port: interface, registry, codecs.
 
 Counterpart of ``ceph_tpu/ec``: the ``ErasureCodeInterface`` contract
 (reference ErasureCodeInterface.h:170-462), a plugin registry and the ISA
-codec family, with the bulk GF(2^8) math on a torch device.
+and jerasure codec families, with the bulk GF(2) math on a torch device.
 """
 
 from ceph_tpu_torch.ec.interface import ErasureCodeInterface, ECError  # noqa: F401

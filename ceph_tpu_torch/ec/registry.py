@@ -2,9 +2,10 @@
 
 Counterpart of ``ceph_tpu/ec/registry.py``, mirroring reference
 src/erasure-code/ErasureCodePlugin.cc:92-202: a singleton registry
-mapping plugin names to factories.  This slice of the port registers
-``isa``; asking for a plugin that a later slice brings raises
-``ECError(ENOENT)`` naming that slice.
+mapping plugin names to factories.  The port registers ``isa`` and
+``jerasure`` (the default plugin, as in the reference); asking for a
+plugin that a later slice brings raises ``ECError(ENOENT)`` naming that
+slice.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from ceph_tpu_torch.ec.interface import ECError, ErasureCodeInterface, ErasureCo
 
 # plugins of the reference package that later slices of the port bring
 _LATER = {
-    "jerasure": "the jerasure slice (kernel B2 and the packet codecs)",
     "lrc": "the LRC slice",
     "shec": "the SHEC slice",
 }
@@ -42,8 +42,10 @@ class ErasureCodePluginRegistry:
 
     def _register_builtins(self) -> None:
         from ceph_tpu_torch.ec.isa import make_isa
+        from ceph_tpu_torch.ec.jerasure import make_jerasure
 
         self.add("isa", make_isa)
+        self.add("jerasure", make_jerasure)
 
     def add(self, name: str, factory) -> None:
         with self._lock:

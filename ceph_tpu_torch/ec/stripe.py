@@ -1,6 +1,6 @@
 """EC stripe tessellation and the coalesced encode/decode of an OSD tick.
 
-Counterpart of ``ceph_tpu/ec/stripe.py:25-268,389-434,652-919``.
+Counterpart of ``ceph_tpu/ec/stripe.py:25-640,652-919``.
 ``StripeInfo`` mirrors ECUtil::stripe_info_t (reference
 src/osd/ECUtil.h:31-84): an EC object is a sequence of stripes, each
 stripe_width = k * stripe_unit logical bytes, cut into k data chunks of
@@ -8,26 +8,42 @@ stripe_unit bytes; shard s is the concatenation of that shard's chunk from
 every stripe.  The stripe axis is the batch axis, so a tick's ops encode
 or decode in one pass over the codec's device.
 
-Engine choice follows the codec's device: on the card the planar GF(2)
-matmuls (``_parity_planes_for``/``_planes_rows_for``) launch the CUDA
-kernel, on the CPU they run its plain version.  PyTorch runs eagerly, so
-the reference's power-of-two batch bucketing (a bound on XLA compiles) has
-no counterpart here.
+Two families of entry points, as in the reference:
 
-Not ported yet: ``decode_stripes``/``decode_stripes_multi``,
-``reencode_*`` and ``merge_range`` (a later slice).  Until then the
-relayout branch of ``decode_planes_multi`` raises.
+- byte at rest (``encode_stripes``/``decode_stripes``/``reencode_stripes``
+  and their coalesced ``*_multi`` twins, what the OSD batcher runs for a
+  pool whose shards are stored as bytes: every packet codec, and any
+  pool with planar at-rest storage off): shard rows in and out, the
+  stripe batch riding the codec's planar layout on the device (bitpack
+  planes and kernel B1 for the matrix codecs, packet rows and kernel B2
+  for the packet codecs);
+- planar at rest (``encode_planes_multi``/``decode_planes_multi``): shards
+  stored as packed bit-planes of a w=8 matrix code.
+
+Engine choice follows the codec's device: on the card the GF(2) matmuls
+launch the CUDA kernels, on the CPU they run their plain versions.  The
+reference's CPU-backend host GF engine (``_host_engine_ok`` and its
+branches) has no counterpart: on a CPU JAX backend it does not check for
+``packetsize`` and computes cauchy parity bytewise, which the port must
+not copy.  PyTorch runs eagerly, so the reference's power-of-two batch
+bucketing (a bound on XLA compiles) has no counterpart either.
+
+Not ported yet: ``reencode_planes_multi`` and ``merge_range`` (a later
+slice), and the relayout branch of ``decode_planes_multi`` for patterns
+without a survivor-submatrix solution, which only the non-MDS SHEC plans
+reach; it raises until the SHEC slice.
 """
 
 from __future__ import annotations
 
 import errno
-from typing import Dict, List, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from ceph_tpu_torch.ec import planar_store as pstore
+from ceph_tpu_torch.ec.codec import _to_device
 from ceph_tpu_torch.ec.interface import ECError
 from ceph_tpu_torch.ops import gf8
 from ceph_tpu_torch.ops.crc32c import crc32c_planar_rows, crc32c_rows
@@ -92,13 +108,6 @@ def _planar_ok(codec, unit: int) -> bool:
     stripe unit?"""
     sup = getattr(codec, "planar_supported", None)
     return bool(sup and sup(unit))
-
-
-def _to_device(codec, arr) -> torch.Tensor:
-    if isinstance(arr, torch.Tensor):
-        return arr.to(codec.device)
-    return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint8)).to(
-        codec.device)
 
 
 def _pack_batch(sinfo: StripeInfo, datas, counts) -> Tuple[np.ndarray, int]:
@@ -218,6 +227,214 @@ def assemble_data_stripes(sinfo: StripeInfo, shards, logical_size: int) -> bytes
     return _assemble_logical(rows, k, nstripes, unit, logical_size)
 
 
+def _shard_rows(shards: Mapping, shard_len: int) -> Dict[int, np.ndarray]:
+    """Shard map -> {shard id: (shard_len,) uint8 row}, lengths checked."""
+    rows: Dict[int, np.ndarray] = {}
+    for s in sorted(shards):
+        arr = np.asarray(shards[s], dtype=np.uint8)
+        if arr.shape[0] != shard_len:
+            raise ValueError(
+                f"shard {s}: {arr.shape[0]} bytes, want {shard_len}")
+        rows[s] = arr
+    return rows
+
+
+def _stripe_batch(items, n: int, unit: int) -> np.ndarray:
+    """``[(shard rows, nstripes), ...]`` -> one zero-filled (total, n,
+    unit) stripe batch, the items' stripes concatenated in order."""
+    total = sum(ns for _rows, ns in items)
+    full = np.zeros((total, n, unit), dtype=np.uint8)
+    ofs = 0
+    for rows, ns in items:
+        for s, arr in rows.items():
+            full[ofs:ofs + ns, s, :] = arr.reshape(ns, unit)
+        ofs += ns
+    return full
+
+
+def _decode_batch(codec, full: np.ndarray, erasures: Tuple[int, ...],
+                  want: Tuple[int, ...]) -> np.ndarray:
+    """(B, n, unit) batch with ``erasures`` absent -> (B, len(want), unit)
+    rebuilt chunks, planar when the codec can."""
+    if _planar_ok(codec, full.shape[2]):
+        pb = codec.to_planar(full)
+        return codec.decode_planar(erasures, pb, want=want) \
+            .to_batch().cpu().numpy()
+    return codec.decode_batch(erasures, full, want=want).cpu().numpy()
+
+
+def _reencode_batch(codec, full: np.ndarray, erasures: Tuple[int, ...],
+                    missing: Tuple[int, ...]) -> np.ndarray:
+    """(B, n, unit) batch -> all n chunks, without leaving the planar
+    domain between decode and re-encode: one conversion in, the
+    ``missing`` data chunks rebuilt, parity re-derived from the data, one
+    conversion out."""
+    k = codec.get_data_chunk_count()
+    n = codec.get_chunk_count()
+    pb = codec.to_planar(full)
+    if missing:
+        dec = codec.decode_planar(erasures, pb, want=missing)
+        order = tuple(n + missing.index(j) if j in missing else j
+                      for j in range(k))
+        data_pb = pb.concat(dec).select(order)
+    else:
+        data_pb = pb.select(tuple(range(k)))
+    parity_pb = codec.encode_planar(data_pb)
+    return data_pb.concat(parity_pb).to_batch().cpu().numpy()
+
+
+def decode_stripes(codec, sinfo: StripeInfo, shards: Mapping,
+                   logical_size: int) -> bytes:
+    """Rebuild the logical bytes from >= k shard rows in one device pass.
+
+    ``shards`` maps shard id -> (nstripes * unit) bytes.  Missing data
+    shards are rebuilt batched, one erasure pattern for the whole object
+    (reference ECBackend reply aggregation + ECUtil::decode)."""
+    k = sinfo.k
+    unit = sinfo.chunk_size
+    n = codec.get_chunk_count()
+    nstripes = sinfo.object_stripes(logical_size)
+    if nstripes == 0:
+        return b""
+    rows = _shard_rows(shards, nstripes * unit)
+    data_rows = {s: a for s, a in rows.items() if s < k}
+    want = tuple(s for s in range(k) if s not in rows)
+    if want:
+        if len(rows) < k:
+            raise ValueError(f"only {len(rows)} of {k} shards")
+        # erasures = every absent shard (absent parity is never a decode
+        # source); want = only the missing DATA shards, since this returns
+        # logical bytes
+        erasures = tuple(s for s in range(n) if s not in rows)
+        recovered = _decode_batch(
+            codec, _stripe_batch([(rows, nstripes)], n, unit), erasures, want)
+        for idx, e in enumerate(want):
+            data_rows[e] = recovered[:, idx, :].reshape(-1)
+    return _assemble_logical(data_rows, k, nstripes, unit, logical_size)
+
+
+def reencode_stripes(codec, sinfo: StripeInfo, shards: Mapping,
+                     logical_size: int) -> np.ndarray:
+    """Recovery: rebuild ALL shard rows from >= k shard rows, decode and
+    re-encode in the planar domain (one conversion each way).  Returns
+    (k+m, nstripes * unit) uint8."""
+    k = sinfo.k
+    unit = sinfo.chunk_size
+    n = codec.get_chunk_count()
+    nstripes = sinfo.object_stripes(logical_size)
+    if nstripes == 0:
+        return np.zeros((n, 0), dtype=np.uint8)
+    if len(shards) < k:
+        raise ValueError(f"only {len(shards)} of {k} shards")
+    if not _planar_ok(codec, unit):
+        data = decode_stripes(codec, sinfo, shards, logical_size)
+        return encode_stripes(codec, sinfo, data)
+    rows = _shard_rows(shards, nstripes * unit)
+    erasures = tuple(s for s in range(n) if s not in rows)
+    missing = tuple(s for s in range(k) if s not in rows)
+    out = _reencode_batch(codec, _stripe_batch([(rows, nstripes)], n, unit),
+                          erasures, missing)
+    return out.transpose(1, 0, 2).reshape(n, nstripes * unit)
+
+
+def decode_stripes_multi(codec, sinfo: StripeInfo, reqs):
+    """Coalesced decode: N read gathers in one device pass per distinct
+    erasure pattern, the decode twin of ``encode_stripes_multi``.
+
+    ``reqs`` is a sequence of ``(shards, logical_size)`` pairs shaped like
+    ``decode_stripes`` arguments; returns the logical byte strings,
+    aligned with ``reqs``.  Ops with every data shard present never touch
+    the device (a host interleave); the others group by their (erasures,
+    want) pattern and each group pays one layout conversion and one
+    decode for its concatenated stripe batch.  Bit-exact with per-op
+    ``decode_stripes``: the code is stripe-local."""
+    k = sinfo.k
+    unit = sinfo.chunk_size
+    n = codec.get_chunk_count()
+    out: List = [None] * len(reqs)
+    groups: Dict[Tuple, List] = {}
+    for i, (shards, logical_size) in enumerate(reqs):
+        nstripes = sinfo.object_stripes(logical_size)
+        if nstripes == 0:
+            out[i] = b""
+            continue
+        rows = _shard_rows(shards, nstripes * unit)
+        want = tuple(s for s in range(k) if s not in rows)
+        if not want:
+            out[i] = _assemble_logical(rows, k, nstripes, unit, logical_size)
+            continue
+        if len(rows) < k:
+            raise ValueError(f"only {len(rows)} of {k} shards")
+        erasures = tuple(s for s in range(n) if s not in rows)
+        groups.setdefault((erasures, want), []).append(
+            (i, rows, nstripes, logical_size))
+    if not groups:
+        return out
+    KERNELS.inc("ec_coalesced_read_ticks")
+    KERNELS.inc("ec_coalesced_reads", sum(len(g) for g in groups.values()))
+    for (erasures, want), items in groups.items():
+        recovered = _decode_batch(
+            codec, _stripe_batch([(r, ns) for _i, r, ns, _ls in items],
+                                 n, unit), erasures, want)
+        ofs = 0
+        for i, rows, ns, logical_size in items:
+            data_rows = {s: a for s, a in rows.items() if s < k}
+            for idx, e in enumerate(want):
+                data_rows[e] = recovered[ofs:ofs + ns, idx, :].reshape(-1)
+            ofs += ns
+            out[i] = _assemble_logical(data_rows, k, ns, unit, logical_size)
+    return out
+
+
+def reencode_stripes_multi(codec, sinfo: StripeInfo, reqs):
+    """Coalesced recovery rebuild: N objects' full shard-row matrices in
+    one device pass per distinct missing-data pattern, the multi twin of
+    ``reencode_stripes`` (returns the per-op (k+m, nstripes*unit) uint8
+    matrices, aligned with ``reqs``).  A codec without the planar
+    contract for this stripe unit falls back to a coalesced decode and a
+    coalesced encode, which still batch the whole group."""
+    k = sinfo.k
+    unit = sinfo.chunk_size
+    n = codec.get_chunk_count()
+    out: List = [None] * len(reqs)
+    groups: Dict[Tuple, List] = {}
+    for i, (shards, logical_size) in enumerate(reqs):
+        nstripes = sinfo.object_stripes(logical_size)
+        if nstripes == 0:
+            out[i] = np.zeros((n, 0), dtype=np.uint8)
+            continue
+        if len(shards) < k:
+            raise ValueError(f"only {len(shards)} of {k} shards")
+        rows = _shard_rows(shards, nstripes * unit)
+        erasures = tuple(s for s in range(n) if s not in rows)
+        missing = tuple(s for s in range(k) if s not in rows)
+        groups.setdefault((erasures, missing), []).append(
+            (i, rows, nstripes, logical_size))
+    if not groups:
+        return out
+    KERNELS.inc("ec_coalesced_reencode_ticks")
+    KERNELS.inc("ec_coalesced_reencodes",
+                sum(len(g) for g in groups.values()))
+    planar = _planar_ok(codec, unit)
+    for (erasures, missing), items in groups.items():
+        if not planar:
+            datas = decode_stripes_multi(
+                codec, sinfo, [(rows, ls) for _i, rows, _ns, ls in items])
+            encoded = encode_stripes_multi(codec, sinfo, datas)
+            for (i, _r, _ns, _ls), (shards_i, _crcs) in zip(items, encoded):
+                out[i] = shards_i
+            continue
+        full = _reencode_batch(
+            codec, _stripe_batch([(r, ns) for _i, r, ns, _ls in items],
+                                 n, unit), erasures, missing)
+        ofs = 0
+        for i, _rows, ns, _ls in items:
+            out[i] = full[ofs:ofs + ns].transpose(1, 0, 2) \
+                .reshape(n, ns * unit)
+            ofs += ns
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Planar AT-REST entry points: shards enter and leave as packed bit-planes
 # (ec/planar_store.py layout); the only layout conversions are the ingest
@@ -254,13 +471,13 @@ def _planes_rows_for(codec, src: Tuple[int, ...], want: Tuple[int, ...],
         bitmat = codec.engine.decode_bitmat(tuple(src), tuple(want))
     except gf8.SingularMatrixError:
         return None
-    return gf8.planar_matmul(bitmat, _to_device(codec, src_planes))
+    return gf8.planar_matmul(bitmat, _to_device(src_planes, codec.device))
 
 
 def _parity_planes_for(codec, data_planes) -> torch.Tensor:
     """(k*8, cols) data plane rows -> (m*8, cols) parity plane rows."""
     return gf8.planar_matmul(codec.engine._enc_bitmat,
-                             _to_device(codec, data_planes))
+                             _to_device(data_planes, codec.device))
 
 
 def encode_planes_multi(codec, sinfo: StripeInfo, datas, want_crcs=None):
@@ -293,7 +510,8 @@ def encode_planes_multi(codec, sinfo: StripeInfo, datas, want_crcs=None):
     batch, pad = _pack_batch(sinfo, datas, counts)
     KERNELS.inc("ec_stripe_pad_bytes", pad)
     record_planar_at_rest("ingest", total * k * unit)
-    rows = _to_device(codec, batch).permute(1, 0, 2).reshape(k, total * unit)
+    rows = _to_device(batch, codec.device).permute(1, 0, 2).reshape(
+        k, total * unit)
     data_planes = gf8.bytes_to_planar(rows)
     all_planes = torch.cat(
         [data_planes, _parity_planes_for(codec, data_planes)], dim=0)
@@ -355,8 +573,8 @@ def decode_planes_multi(codec, sinfo: StripeInfo, reqs):
     domain, one planar matmul per erasure pattern for the whole tick; the
     only conversion is the final planes -> logical-bytes assemble.  A
     pattern without a survivor-submatrix solution raises ``ECError``: the
-    reference's relayout to the byte machinery arrives with
-    ``decode_stripes_multi``."""
+    reference's relayout to the byte machinery, which only the non-MDS
+    SHEC plans reach, arrives with the SHEC slice."""
     k = sinfo.k
     unit = sinfo.chunk_size
     n = codec.get_chunk_count()
@@ -398,7 +616,7 @@ def decode_planes_multi(codec, sinfo: StripeInfo, reqs):
             raise ECError(
                 errno.ENOTSUP,
                 f"erasures {erasures}: no survivor-submatrix solution; the "
-                "byte relayout path arrives with decode_stripes_multi")
+                "byte relayout path arrives with the SHEC slice")
         rec = rec.cpu().numpy()
         c0 = 0
         for i, arrs, ns, logical_size in items:

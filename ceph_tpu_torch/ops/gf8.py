@@ -7,11 +7,13 @@ coding matrix expands to an (8r, 8k) bit-matrix and an encode is one
 GF(2) matmul (``expand_bitmatrix``).
 
 Host side (numpy, k x m bytes, never data): the log/antilog/product
-tables, ``expand_bitmatrix``, ``gf_invert_matrix``, ``gf_matmul_ref``.
+tables, ``gf_pow``, ``expand_bitmatrix``, ``gf_invert_matrix``,
+``gf_matmul_ref``.
 
 Device side (torch, on whatever device the tensors live):
 
-- the byte path ``unpack_bits``/``pack_bits``/``bitmatrix_matmul``;
+- the byte path ``unpack_bits``/``pack_bits``/``bitmatrix_matmul`` (also
+  the plain version of kernel B2, ``gf8_bytes_cuda``);
 - the packed bit-planar layout ``bytes_to_planar``/``planar_to_bytes``;
 - ``planar_matmul``, which hands packed planes to the hand-written CUDA
   kernel (``gf8_cuda``) for a CUDA tensor and to its plain version for a
@@ -70,6 +72,17 @@ def gf_inv(a):
     if np.any(a == 0):
         raise ZeroDivisionError("gf_inv(0)")
     return GF_EXP[255 - GF_LOG[a]]
+
+
+def gf_pow(a, n):
+    """a**n in GF(2^8)."""
+    a = int(a)
+    n = int(n)
+    if n == 0:
+        return 1
+    if a == 0:
+        return 0
+    return int(GF_EXP[(GF_LOG[a] * n) % 255])
 
 
 def gf_matmul_ref(m, d):

@@ -1,32 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's erasure-code hot path on one CUDA card.
+"""Drive the PyTorch/CUDA port's erasure-code hot paths on one CUDA card.
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's kernels from ``ceph_tpu_torch/csrc/`` (first use),
-then runs four phases and exits non-zero if any of them fails:
+It builds the port's kernels from ``ceph_tpu_torch/csrc/`` (first use,
+one ``nvcc`` per source, in parallel), then runs these phases and exits
+non-zero if any of them fails:
 
-1. kernel: kernel B1 (``ops/gf8_cuda.planar_matmul``) against its plain
-   version on the card, bit-exact, at the ragged check shapes and at the
-   shapes the main path gives it;
-2. codec: ISA k=8 m=4 at full width, 4096 stripes x 8 x 512 B per step:
-   ``to_planar`` -> ``encode_planar`` -> ``to_batch`` against the host
-   GF reference, ``decode_planar`` for 1, 2 and 4 erasures, and
-   ``encode``/``decode_concat`` of a 4 MiB object;
-3. stripe: one OSD tick at ``StripeInfo(8, 4096)`` (256 ops of 64 KiB and
-   a few ragged sizes): ``encode_planes_multi`` shards and CRCs against
-   the host reference, ``decode_planes_multi`` with one and two lost data
-   shards back to the original bytes;
-4. timing: CUDA-event medians of B1 and of its plain version at the
-   headline shape (L2 flushed before each launch), and the encode rate.
+1. kernels: B1 (``ops/gf8_cuda.planar_matmul``) and B2
+   (``ops/gf8_bytes_cuda.bitmatrix_matmul``) against their plain versions
+   on the card, bit-exact: B1 at its ragged check shapes and the shapes
+   the ISA path gives it; B2 at the general ISA bit-matrices the TPU
+   kernel was validated with, the lane-expanded matrices of the cauchy
+   path (encode, decodes with 1, 2 and 4 erasures, the tick), the encode
+   matrices of liberation k=7 w=7, blaum_roth k=6 w=6, liber8tion k=8 and
+   cauchy_good w=16 (with a planar encode/decode of each against the host
+   reference), a misaligned column slice and N in {1, 7, 4097};
+2. ISA path (ISA k=8 m=4, bit-planar, kernel B1): 4096 stripes x 8 x
+   512 B per step through ``to_planar`` -> ``encode_planar`` ->
+   ``to_batch`` against the host GF reference, ``decode_planar`` for 1, 2
+   and 4 erasures, ``encode``/``decode_concat`` of a 4 MiB object, and one
+   OSD tick at ``StripeInfo(8, 4096)`` through ``encode_planes_multi`` /
+   ``decode_planes_multi``;
+3. jerasure path (cauchy_good k=8 m=4 w=8 packetsize=2048, packet rows,
+   kernel B2): 128 stripes x 8 x 16 KiB = 16 MiB per step through the
+   same planar calls against a host reference (the XOR of the packet rows
+   the bit-matrix selects), ``encode``/``decode_concat`` of a 4 MiB
+   object, one byte-at-rest OSD tick at ``StripeInfo(8, 16384)`` through
+   ``encode_stripes_multi`` / ``decode_stripes_multi`` /
+   ``reencode_stripes_multi``, and a small tick of Ceph's default profile
+   (jerasure reed_sol_van k=2 m=1, kernel B1) through
+   ``encode_planes_multi`` / ``decode_planes_multi``;
+4. timing: CUDA-event medians of B1 and B2 and of their plain versions at
+   their headline shapes (L2 flushed before each launch), and the encode
+   step of each path split into its parts.
 
-Phases 2 and 3 are the main path: kernel launch counts are set to 0 just
-before them and read just after, and every kernel must have launched.
-The last lines are the card's name and power limit, one JSON object
-describing each kernel, and ``{"ok": true, "device": {...}}``.  Without
-a CUDA device it prints no result and exits non-zero.
+Phases 2 and 3 are the main paths: kernel launch counts are set to 0 just
+before each and read just after, and every kernel of the path must have
+launched.  The last lines are the card's name and power limit, one JSON
+object describing each kernel, and ``{"ok": true, "device": {...}}``.
+Without a CUDA device it prints no result and exits non-zero.
 """
 
 from __future__ import annotations
@@ -51,6 +66,21 @@ SPIN_CYCLES = 500_000
 
 # one OSD tick: 256 ops of 64 KiB objects and a few ragged sizes
 TICK_SIZES = [64 << 10] * 256 + [0, 100, 40000, 200 << 10, (1 << 20) + 1]
+
+# the jerasure path: cauchy_good at the plugin's default w and packetsize
+# (16 KiB chunk quantum), at the k/m of the ISA path; 128 stripes x 8 x
+# 16 KiB = 16 MiB of client data per encode step
+CAUCHY_PROFILE = {"plugin": "jerasure", "technique": "cauchy_good",
+                  "k": "8", "m": "4", "packetsize": "2048"}
+HEADLINE_STRIPES = 128
+
+# the packet codecs checked at their own geometry (packetsize 2048)
+PACKET_CHECKS = [
+    {"technique": "liberation", "k": "7", "w": "7"},
+    {"technique": "blaum_roth", "k": "6", "w": "6"},
+    {"technique": "liber8tion", "k": "8"},
+    {"technique": "cauchy_good", "k": "8", "m": "4", "w": "16"},
+]
 
 
 def log(msg: str) -> None:
@@ -229,8 +259,297 @@ def phase_stripe(codec):
             "returns the original bytes")
 
 
-def phase_timing(codec, data):
-    """CUDA-event medians at the headline shape; returns a dict."""
+def to_packet_rows(batch: np.ndarray, w: int, p: int) -> np.ndarray:
+    """(B, c, S) chunks -> (c*w, B*ns*p) packet rows: packet t of every
+    super-block of chunk j lands in row j*w + t (jerasure's layout)."""
+    b, c, s = batch.shape
+    ns = s // (w * p)
+    return np.ascontiguousarray(batch.reshape(b, c, ns, w, p)
+                                .transpose(1, 3, 0, 2, 4)
+                                .reshape(c * w, b * ns * p))
+
+
+def from_packet_rows(rows: np.ndarray, b: int, s: int, w: int,
+                     p: int) -> np.ndarray:
+    """(c*w, B*ns*p) packet rows -> (B, c, S) chunks."""
+    c = rows.shape[0] // w
+    ns = s // (w * p)
+    return np.ascontiguousarray(rows.reshape(c, w, b, ns, p)
+                                .transpose(2, 0, 3, 1, 4).reshape(b, c, s))
+
+
+def host_xor_rows(m01: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Host reference of a packet code: output row r is the XOR of the
+    input rows that the 0/1 matrix m01 selects in its row r."""
+    out = np.zeros((m01.shape[0], rows.shape[1]), dtype=np.uint8)
+    for r in range(m01.shape[0]):
+        sel = np.nonzero(m01[r])[0]
+        if sel.size:
+            out[r] = np.bitwise_xor.reduce(rows[sel], axis=0)
+    return out
+
+
+def host_packet_parity(codec, batch: np.ndarray) -> np.ndarray:
+    """(B, k, S) data chunks -> (B, m, S) parity chunks on the host."""
+    w, p = codec.w, codec.packetsize
+    b, _k, s = batch.shape
+    prow = host_xor_rows(codec._encode_bits(), to_packet_rows(batch, w, p))
+    return from_packet_rows(prow, b, s, w, p)
+
+
+def check_b2(name, lane, rows):
+    """B2 against its plain version on the same operands; max |diff|."""
+    import torch
+
+    from ceph_tpu_torch.ops import gf8_bytes_cuda
+
+    got = gf8_bytes_cuda.bitmatrix_matmul(lane, rows)
+    want = gf8_bytes_cuda.bitmatrix_matmul_ref(lane, rows)
+    torch.cuda.synchronize()
+    diff = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+    if diff or not torch.equal(got, want):
+        raise AssertionError(f"B2 differs from its plain version: {name}")
+    log(f"kernel: B2 bit-exact, {name}, bitmat {tuple(lane.shape)} x data "
+        f"{tuple(rows.shape)}")
+    return diff
+
+
+def phase_kernel_b2(codec, rng):
+    """B2 against its plain version on the card at every shape of the
+    jerasure slice; returns max |diff|."""
+    import torch
+
+    from ceph_tpu_torch.ec import factory, matrices
+    from ceph_tpu_torch.ops import gf8
+
+    worst = 0
+    # the general bit-matrices the TPU kernel was validated with
+    for (k, m, n) in [(8, 4, 16384 * 3), (8, 4, 16384 * 2 + 1000),
+                      (4, 2, 5000), (10, 4, 16384)]:
+        bm = torch.from_numpy(
+            gf8.expand_bitmatrix(matrices.isa_rs_matrix(k, m))).cuda()
+        data = torch.from_numpy(
+            rng.integers(0, 256, (k, n), dtype=np.uint8)).cuda()
+        worst = max(worst, check_b2(f"ISA k{k}m{m} N={n}", bm, data))
+    # the lane-expanded matrices of the cauchy path at the headline width
+    k, w, p = codec.k, codec.w, codec.packetsize
+    n = HEADLINE_STRIPES * p
+    rows = torch.from_numpy(
+        rng.integers(0, 256, ((k + codec.m) * w, n + 8), dtype=np.uint8)
+    ).cuda()
+    enc = codec._lane(codec._encode_bits())
+    worst = max(worst, check_b2("cauchy headline encode", enc,
+                                rows[:k * w, :n]))
+    for er in [(2,), (0, 9), (1, 4, 8, 11)]:
+        src = tuple(i for i in range(k + codec.m) if i not in er)[:k]
+        dec = codec._lane(codec._decode_bits(src, er))
+        sel = torch.cat([rows[s * w:(s + 1) * w, :n] for s in src])
+        worst = max(worst, check_b2(f"cauchy headline decode {er}", dec, sel))
+    tick_stripes = sum(-(-s // (8 * 16384)) for s in TICK_SIZES)
+    tick = torch.from_numpy(rng.integers(
+        0, 256, (k * w, tick_stripes * p), dtype=np.uint8)).cuda()
+    worst = max(worst, check_b2("cauchy stripe tick encode", enc, tick))
+    # a column slice off any word boundary, and ragged widths
+    for n_edge in (n - 8, 1, 7, 4097):
+        view = rows[:k * w, 3:3 + n_edge]
+        worst = max(worst, check_b2(
+            f"cauchy encode, slice at column 3, N={n_edge}", enc, view))
+    # the other packet codecs at their own geometry: kernel, then a planar
+    # encode/decode against the host reference
+    for prof in PACKET_CHECKS:
+        pc = factory({"plugin": "jerasure", "packetsize": "2048", **prof})
+        name = f"{pc.technique} k{pc.k}m{pc.m} w{pc.w}"
+        lane = pc._lane(pc._encode_bits())
+        batch = rng.integers(0, 256, (16, pc.k, pc.w * pc.packetsize),
+                             dtype=np.uint8)
+        prow = torch.from_numpy(to_packet_rows(batch, pc.w,
+                                               pc.packetsize)).cuda()
+        worst = max(worst, check_b2(f"{name} encode", lane, prow))
+        parity = pc.encode_planar(pc.to_planar(batch)).to_batch().cpu().numpy()
+        if not np.array_equal(parity, host_packet_parity(pc, batch)):
+            raise AssertionError(f"{name}: planar encode differs from host")
+        full = np.concatenate([batch, parity], axis=1)
+        er = (0, pc.k)
+        got = pc.decode_planar(er, pc.to_planar(full)).to_batch()
+        if not np.array_equal(got.cpu().numpy(), full[:, list(er), :]):
+            raise AssertionError(f"{name}: planar decode {er} wrong")
+        log(f"codec: {name} packetsize 2048 planar encode equals host "
+            f"reference, decode {er} recovers the chunks")
+    return worst
+
+
+def phase_codec_cauchy(codec, rng):
+    """cauchy_good k8m4 at 128 x 8 x 16 KiB = 16 MiB per step: planar
+    encode/decode and the object encode/decode_concat, against the host
+    reference.  Returns the step's data."""
+    k, m, s = codec.k, codec.m, codec.w * codec.packetsize
+    data = rng.integers(0, 256, (HEADLINE_STRIPES, k, s), dtype=np.uint8)
+    t0 = time.perf_counter()
+    parity = codec.encode_planar(codec.to_planar(data)).to_batch()
+    parity = parity.cpu().numpy()
+    t_enc = time.perf_counter() - t0
+    if not np.array_equal(parity, host_packet_parity(codec, data)):
+        raise AssertionError("cauchy planar encode differs from host")
+    log(f"codec: cauchy_good planar encode of {HEADLINE_STRIPES}x{k}x{s} B "
+        f"equals the host reference (host clock incl. copies "
+        f"{t_enc * 1e3:.3f} ms)")
+    full = np.concatenate([data, parity], axis=1)
+    for er in [(2,), (0, 9), (1, 4, 8, 11)]:
+        chunks = full.copy()
+        chunks[:, list(er), :] = 0
+        dec = codec.decode_planar(er, codec.to_planar(chunks))
+        if not np.array_equal(dec.to_batch().cpu().numpy(),
+                              full[:, list(er), :]):
+            raise AssertionError(f"cauchy decode_planar {er} wrong")
+        log(f"codec: cauchy_good decode_planar erasures {er} recovers the "
+            "chunks")
+    obj = rng.integers(0, 256, 4 << 20, dtype=np.uint8).tobytes()
+    enc = codec.encode(range(k + m), obj)
+    chunk = len(enc[0])
+    dchunks = np.stack([enc[i] for i in range(k)])[None]     # (1, k, chunk)
+    if not np.array_equal(np.stack([enc[i] for i in range(k, k + m)]),
+                          host_packet_parity(codec, dchunks)[0]):
+        raise AssertionError("cauchy encode parity differs from host")
+    for er in [(0,), (3, 10), (0, 5, 9, 11)]:
+        avail = {i: c for i, c in enc.items() if i not in er}
+        if codec.decode_concat(avail)[:len(obj)] != obj:
+            raise AssertionError(f"cauchy decode_concat {er} wrong")
+    log(f"codec: cauchy_good encode/decode_concat of a 4 MiB object "
+        f"({chunk} B chunks) round-trips")
+    return data
+
+
+def phase_stripe_cauchy(codec):
+    """One byte-at-rest OSD tick of the cauchy pool at StripeInfo(8,
+    16384): coalesced encode (shards and CRCs against the host
+    reference), decode with lost data shards and recovery rebuild."""
+    from ceph_tpu_torch.ec import stripe
+    from ceph_tpu_torch.ops import crc32c
+
+    rng = np.random.default_rng(SEED + 4)
+    k, n = codec.k, codec.get_chunk_count()
+    sinfo = stripe.StripeInfo(k, codec.stripe_unit(4096))
+    unit = sinfo.chunk_size
+    datas = [rng.integers(0, 256, s, dtype=np.uint8).tobytes()
+             for s in TICK_SIZES]
+    res = stripe.encode_stripes_multi(codec, sinfo, datas,
+                                      want_crcs=[True] * len(datas))
+    by_len = {}
+    for (shards, crcs), d in zip(res, datas):
+        ns = sinfo.object_stripes(len(d))
+        buf = np.zeros(ns * sinfo.stripe_width, dtype=np.uint8)
+        buf[:len(d)] = np.frombuffer(d, dtype=np.uint8)
+        batch = buf.reshape(ns, k, unit)
+        full = np.concatenate([batch, host_packet_parity(codec, batch)],
+                              axis=1)
+        want = full.transpose(1, 0, 2).reshape(n, ns * unit)
+        if not np.array_equal(shards, want):
+            raise AssertionError(f"cauchy shards differ for a {len(d)} B op")
+        by_len.setdefault(shards.shape[1], []).append((shards, crcs))
+    checked = 0
+    for length, group in by_len.items():
+        rows = np.vstack([sh for sh, _c in group])
+        got = [c for _s, crcs in group for c in crcs]
+        if got != crc32c.crc32c_rows(rows):      # host table path
+            raise AssertionError(f"cauchy CRCs differ at length {length}")
+        checked += len(rows)
+    stripes = sum(sinfo.object_stripes(len(d)) for d in datas)
+    log(f"stripe: cauchy_good tick at StripeInfo({k}, {unit}): {len(datas)} "
+        f"ops, {stripes} stripes, shards equal the host reference, "
+        f"{checked} shard CRCs equal host crc32c")
+    for lost in [(3,), (0, 6)]:
+        reqs = [({s: sh[s] for s in range(n) if s not in lost}, len(d))
+                for (sh, _c), d in zip(res, datas)]
+        if stripe.decode_stripes_multi(codec, sinfo, reqs) != datas:
+            raise AssertionError(f"decode_stripes_multi lost {lost} wrong")
+        log(f"stripe: cauchy_good decode_stripes_multi with data shards "
+            f"{lost} lost returns the original bytes")
+    lost = (1, 9)
+    reqs = [({s: sh[s] for s in range(n) if s not in lost}, len(d))
+            for (sh, _c), d in zip(res, datas)]
+    for got, (sh, _c) in zip(stripe.reencode_stripes_multi(codec, sinfo,
+                                                           reqs), res):
+        if not np.array_equal(got, sh):
+            raise AssertionError("reencode_stripes_multi shards differ")
+    log(f"stripe: cauchy_good reencode_stripes_multi with shards {lost} "
+        "lost rebuilds every shard")
+
+
+def phase_default_profile_tick():
+    """A small tick of Ceph's default pool profile (jerasure reed_sol_van
+    k=2 m=1, bit-planar at rest) through the planar entry points."""
+    from ceph_tpu_torch.ec import factory
+    from ceph_tpu_torch.ec import planar_store as pstore
+    from ceph_tpu_torch.ec import stripe
+    from ceph_tpu_torch.ops import gf8
+
+    codec = factory({})
+    assert (codec.technique, codec.k, codec.m) == ("reed_sol_van", 2, 1)
+    rng = np.random.default_rng(SEED + 5)
+    sinfo = stripe.StripeInfo(2, codec.stripe_unit(4096))
+    if not stripe.planar_at_rest_ok(codec, sinfo.chunk_size):
+        raise AssertionError("default profile is not planar at rest")
+    datas = [rng.integers(0, 256, s, dtype=np.uint8).tobytes()
+             for s in [64 << 10] * 16 + [0, 5, 8192, 100000]]
+    res = stripe.encode_planes_multi(codec, sinfo, datas,
+                                     want_crcs=[True] * len(datas))
+    for (planes, _crcs), d in zip(res, datas):
+        shards = pstore.planes_to_rows(planes.reshape(3 * 8, -1))
+        ns = sinfo.object_stripes(len(d))
+        buf = np.zeros(ns * sinfo.stripe_width, dtype=np.uint8)
+        buf[:len(d)] = np.frombuffer(d, dtype=np.uint8)
+        rows = buf.reshape(ns, 2, sinfo.chunk_size).transpose(1, 0, 2) \
+            .reshape(2, ns * sinfo.chunk_size)
+        want = np.vstack([rows, gf8.gf_matmul_ref(codec.engine.coding, rows)])
+        if not np.array_equal(shards, want):
+            raise AssertionError("default-profile shards differ from host")
+    for lost in [(0,), (1,)]:
+        reqs = [({s: p[s] for s in range(3) if s not in lost}, len(d))
+                for (p, _c), d in zip(res, datas)]
+        if stripe.decode_planes_multi(codec, sinfo, reqs) != datas:
+            raise AssertionError(f"default profile lost {lost} wrong")
+    log(f"stripe: default profile jerasure reed_sol_van k2m1, "
+        f"{len(datas)} ops through encode_planes_multi/decode_planes_multi "
+        "round-trip with either data shard lost")
+
+
+def _bound(nbytes: int, xors: float):
+    """(bound ms, "bytes" or "operations") for a kernel call that must
+    move ``nbytes`` and do ``xors`` 32-bit XORs."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = xors / OPS_32BIT_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), bytes_ms, ops_ms
+
+
+def time_encode_step(codec, data, flush, label: str, card: str) -> float:
+    """The encode step of one path on device-resident data, split into
+    to_planar, encode_planar and to_batch; returns the step's ms."""
+    import torch
+
+    data_dev = torch.from_numpy(data).cuda()
+    enc_ms = cuda_median_ms(
+        lambda: codec.encode_planar(codec.to_planar(data_dev)).to_batch(), 10,
+        flush)
+    pb = codec.to_planar(data_dev)
+    enc_planar_ms = cuda_median_ms(lambda: codec.encode_planar(pb), 20, flush)
+    to_planar_ms = cuda_median_ms(lambda: codec.to_planar(data_dev), 10, flush)
+    par = codec.encode_planar(pb)
+    to_batch_ms = cuda_median_ms(
+        lambda: par.with_planes(par.planes).to_batch(), 10, flush)
+    step_bytes = data.size
+    log(f"timing: {label} encode step (to_planar + encode_planar + to_batch,"
+        f" device-resident {step_bytes} B) {enc_ms:.6f} ms = "
+        f"{step_bytes / enc_ms / 1e6:.3f} GB/s; encode_planar alone "
+        f"{enc_planar_ms:.6f} ms = {step_bytes / enc_planar_ms / 1e6:.3f} GB/s;"
+        f" to_planar alone {to_planar_ms:.6f} ms; parity to_batch alone "
+        f"{to_batch_ms:.6f} ms [{card}]")
+    return enc_ms
+
+
+def phase_timing(codec, data, card: str):
+    """B1 at the ISA headline shape, and the ISA encode step; returns the
+    kernel's numbers."""
     import torch
 
     from ceph_tpu_torch.ops import gf8_cuda
@@ -249,33 +568,59 @@ def phase_timing(codec, data):
                                 "planar_matmul_kernel", 30, flush)
     nbytes = kw * npk + rw * npk + rw * kw
     xors = int(bm.sum().item()) * npk / 4        # 32-bit XORs
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = xors / OPS_32BIT_PER_S * 1e3
-    data_dev = torch.from_numpy(data).cuda()
-    enc_ms = cuda_median_ms(
-        lambda: codec.encode_planar(codec.to_planar(data_dev)).to_batch(), 10,
-        flush)
-    pb = codec.to_planar(data_dev)
-    enc_planar_ms = cuda_median_ms(lambda: codec.encode_planar(pb), 20, flush)
-    to_planar_ms = cuda_median_ms(lambda: codec.to_planar(data_dev), 10, flush)
-    par = codec.encode_planar(pb)
-    to_batch_ms = cuda_median_ms(
-        lambda: par.with_planes(par.planes).to_batch(), 10, flush)
-    step_bytes = data.size
+    bound_ms, bound_by, bytes_ms, ops_ms = _bound(nbytes, xors)
     log(f"timing: B1 headline ({rw}x{kw} x {kw}x{npk}) median {ms:.6f} ms, "
-        f"plain version {plain_ms:.6f} ms, bound {max(bytes_ms, ops_ms):.6f} ms"
+        f"plain version {plain_ms:.6f} ms, bound {bound_ms:.6f} ms"
         f" ({nbytes} bytes -> {bytes_ms:.6f} ms; {xors:.0f} XORs -> "
         f"{ops_ms:.6f} ms); profiler device time of the kernel alone "
-        + ("not measured" if dev_ms is None else f"{dev_ms:.6f} ms"))
-    log(f"timing: encode step (to_planar + encode_planar + to_batch, "
-        f"device-resident {step_bytes} B) {enc_ms:.6f} ms = "
-        f"{step_bytes / enc_ms / 1e6:.3f} GB/s; encode_planar alone "
-        f"{enc_planar_ms:.6f} ms = {step_bytes / enc_planar_ms / 1e6:.3f} GB/s;"
-        f" to_planar alone {to_planar_ms:.6f} ms; parity to_batch alone "
-        f"{to_batch_ms:.6f} ms")
-    return {"ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        + ("not measured" if dev_ms is None else f"{dev_ms:.6f} ms")
+        + f" [{card}]")
+    time_encode_step(codec, data, flush, "ISA k8m4", card)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_timing_b2(codec, data, card: str):
+    """B2 at the cauchy headline lane shape, and the cauchy encode step;
+    returns the kernel's numbers."""
+    import torch
+
+    from ceph_tpu_torch.ops import gf8_bytes_cuda
+
+    rng = np.random.default_rng(SEED + 3)
+    m01 = codec._encode_bits()
+    lane = codec._lane(m01)
+    rw, kw = (int(x) for x in lane.shape)
+    n = HEADLINE_STRIPES * codec.packetsize   # packet-row bytes of one step
+    rows = torch.from_numpy(
+        rng.integers(0, 256, (kw // 8, n), dtype=np.uint8)).cuda()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ms = cuda_median_ms(lambda: gf8_bytes_cuda.bitmatrix_matmul(lane, rows),
+                        50, flush)
+    plain_ms = cuda_median_ms(
+        lambda: gf8_bytes_cuda.bitmatrix_matmul_ref(lane, rows), 10, flush)
+    dev_ms = profiled_kernel_ms(
+        lambda: gf8_bytes_cuda.bitmatrix_matmul(lane, rows),
+        "bytes_matmul_kernel", 30, flush)
+    pack_ms = profiled_kernel_ms(
+        lambda: gf8_bytes_cuda.bitmatrix_matmul(lane, rows),
+        "pack_blocks_kernel", 30, flush)
+    nbytes = (kw // 8) * n + (rw // 8) * n + rw * kw
+    xors = int(m01.sum()) * n / 4                # 32-bit XORs of whole rows
+    bound_ms, bound_by, bytes_ms, ops_ms = _bound(nbytes, xors)
+    log(f"timing: B2 headline lane ({rw}x{kw} x {kw // 8}x{n}) median "
+        f"{ms:.6f} ms, plain version {plain_ms:.6f} ms, bound "
+        f"{bound_ms:.6f} ms ({nbytes} bytes -> {bytes_ms:.6f} ms; "
+        f"{xors:.0f} XORs -> {ops_ms:.6f} ms); profiler device time of "
+        "bytes_matmul_kernel "
+        + ("not measured" if dev_ms is None else f"{dev_ms:.6f} ms")
+        + ", of pack_blocks_kernel "
+        + ("not measured" if pack_ms is None else f"{pack_ms:.6f} ms")
+        + f" [{card}]")
+    time_encode_step(codec, data, flush, "cauchy_good k8m4 packetsize 2048",
+                     card)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def main() -> int:
@@ -285,7 +630,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from ceph_tpu_torch.ec import factory
-    from ceph_tpu_torch.ops import _build, gf8_cuda
+    from ceph_tpu_torch.ops import _build, gf8_bytes_cuda, gf8_cuda
     from ceph_tpu_torch.utils.perf import KERNELS
 
     t0 = time.perf_counter()
@@ -296,40 +641,76 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build: {stem}: {line.strip()}")
-    rng = np.random.default_rng(SEED)
-    codec = factory({"plugin": "isa", "k": "8", "m": "4"})
-    assert codec.device.type == "cuda", codec.device
-    max_err = phase_kernel(codec, rng)
-
-    # the main path: counts from 0 just before, read just after
-    gf8_cuda.launches = 0
-    KERNELS.reset()
-    data = phase_codec(codec, rng)
-    phase_stripe(codec)
-    torch.cuda.synchronize()
-    launches = gf8_cuda.launches
-    log(f"main path: B1 launches {launches}; counters "
-        f"{json.dumps(KERNELS.dump()['device_kernels'], sort_keys=True)}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched kernel B1")
-
-    t = phase_timing(codec, data)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
-    log(smi.stdout.strip())
+    card = smi.stdout.strip()
+    rng = np.random.default_rng(SEED)
+    isa = factory({"plugin": "isa", "k": "8", "m": "4"})
+    cauchy = factory(CAUCHY_PROFILE)
+    assert isa.device.type == "cuda" and cauchy.device.type == "cuda"
+    b1_err = phase_kernel(isa, rng)
+    b2_err = phase_kernel_b2(cauchy, rng)
+
+    # main path of the ISA slice: counts from 0 just before, read just after
+    gf8_cuda.launches = 0
+    gf8_bytes_cuda.launches = 0
+    KERNELS.reset()
+    data = phase_codec(isa, rng)
+    phase_stripe(isa)
+    torch.cuda.synchronize()
+    b1_launches = gf8_cuda.launches
+    log(f"main path (ISA): B1 launches {b1_launches}, B2 launches "
+        f"{gf8_bytes_cuda.launches}; counters "
+        f"{json.dumps(KERNELS.dump()['device_kernels'], sort_keys=True)}")
+    if b1_launches <= 0:
+        raise AssertionError("the ISA path never launched kernel B1")
+
+    # main path of the jerasure slice
+    gf8_cuda.launches = 0
+    gf8_bytes_cuda.launches = 0
+    KERNELS.reset()
+    cdata = phase_codec_cauchy(cauchy, rng)
+    phase_stripe_cauchy(cauchy)
+    phase_default_profile_tick()
+    torch.cuda.synchronize()
+    b2_launches = gf8_bytes_cuda.launches
+    j_b1 = gf8_cuda.launches
+    log(f"main path (jerasure): B2 launches {b2_launches}, B1 launches "
+        f"{j_b1}; counters "
+        f"{json.dumps(KERNELS.dump()['device_kernels'], sort_keys=True)}")
+    if b2_launches <= 0:
+        raise AssertionError("the jerasure path never launched kernel B2")
+    if j_b1 <= 0:
+        raise AssertionError("the default-profile tick never launched B1")
+
+    t1 = phase_timing(isa, data, card)
+    t2 = phase_timing_b2(cauchy, cdata, card)
+    log(card)
     kernels = [{
         "name": "B1 planar GF(2) matmul",
         "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf8_planar.cu",
         "replaces": "ceph_tpu/ops/gf8_pallas.py:165",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
+        "launches": b1_launches,
+        "max_abs_err": b1_err,
+        "ms": t1["ms"],
+        "plain_ms": t1["plain_ms"],
+        "bound_ms": t1["bound_ms"],
+        "bound_by": t1["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "B2 GF(2) bit-matrix map on raw bytes",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/gf8_bytes.cu",
+        "replaces": "ceph_tpu/ops/gf8_pallas.py:58",
+        "launches": b2_launches,
+        "max_abs_err": b2_err,
+        "ms": t2["ms"],
+        "plain_ms": t2["plain_ms"],
+        "bound_ms": t2["bound_ms"],
+        "bound_by": t2["bound_by"],
         "library_ms": None,
     }]
     log(json.dumps({"kernels": kernels}))

@@ -4,7 +4,8 @@
 - no source file of the package imports jax, ceph_tpu or google_crc32c;
 - an entry point asked for no device runs on CUDA, and raises where there
   is none instead of running on the CPU;
-- the B1 wrapper never answers a non-CPU tensor with its plain version.
+- the B1 and B2 wrappers never answer a non-CPU tensor with their plain
+  versions.
 """
 
 import os
@@ -20,7 +21,7 @@ import torch
 import ceph_tpu_torch
 from ceph_tpu_torch.ec import codec as pcodec
 from ceph_tpu_torch.ec import factory
-from ceph_tpu_torch.ops import _build, gf8_cuda
+from ceph_tpu_torch.ops import _build, gf8_bytes_cuda, gf8_cuda
 
 PKG = pathlib.Path(ceph_tpu_torch.__file__).parent
 REPO = PKG.parent
@@ -35,6 +36,12 @@ def test_import_leaves_jax_and_reference_out():
         "import sys\n"
         "import ceph_tpu_torch, ceph_tpu_torch.ec, ceph_tpu_torch.ops.gf8_cuda\n"
         "import ceph_tpu_torch.ec.stripe, ceph_tpu_torch.ops.crc32c\n"
+        "import ceph_tpu_torch.ec.jerasure, ceph_tpu_torch.ec.liberation\n"
+        "import ceph_tpu_torch.ec.planar, ceph_tpu_torch.ops.gfw\n"
+        "import ceph_tpu_torch.ops.gf8_bytes_cuda\n"
+        "from ceph_tpu_torch.ec import factory\n"
+        "factory({'plugin': 'jerasure', 'technique': 'cauchy_good',"
+        " 'k': '4', 'm': '2'}, device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ceph_tpu' or m.startswith('ceph_tpu.')"
         " or m == 'google_crc32c']\n"
@@ -67,6 +74,11 @@ def test_factory_defaults_to_cuda_and_refuses_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         factory({"plugin": "isa", "k": "4", "m": "2"})
+    for technique in ("reed_sol_van", "cauchy_good", "liberation"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            factory({"plugin": "jerasure", "technique": technique})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        factory({})                 # the default plugin, jerasure
     with pytest.raises(RuntimeError, match="CUDA"):
         pcodec.engine_from_reference(np.ones((2, 4), dtype=np.uint8), 4, 2)
     assert pcodec.resolve_device("cpu").type == "cpu"
@@ -98,10 +110,39 @@ def test_b1_wrapper_refuses_instead_of_falling_back(monkeypatch, tmp_path):
         gf8_cuda._kernel()
 
 
+def test_b2_wrapper_refuses_instead_of_falling_back(monkeypatch, tmp_path):
+    """Kernel B2's wrapper, like B1's: off the CPU it launches the kernel
+    or raises, and never runs the plain version instead."""
+    bm = torch.ones((8, 8), dtype=torch.uint8, device="meta")
+    data = torch.zeros((1, 16), dtype=torch.uint8, device="meta")
+    calls = []
+    monkeypatch.setattr(gf8_bytes_cuda, "bitmatrix_matmul_ref",
+                        lambda *a: calls.append(a))
+    before = gf8_bytes_cuda.launches
+    with pytest.raises(ValueError):
+        gf8_bytes_cuda.bitmatrix_matmul(bm, data)
+    with pytest.raises(ValueError):
+        gf8_bytes_cuda.bitmatrix_matmul(
+            bm, torch.zeros((1, 16), dtype=torch.uint8))
+    assert gf8_bytes_cuda.launches == before and not calls
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has nvcc at the default path")
+    monkeypatch.setattr(gf8_bytes_cuda, "_fn", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        gf8_bytes_cuda._kernel()
+
+
 def test_kernel_sources_and_build_flags_target_hopper():
     srcs = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    assert srcs == ["gf8_planar.cu"]
+    assert srcs == ["gf8_bytes.cu", "gf8_planar.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     text = (PKG / "csrc" / "gf8_planar.cu").read_text()
     assert 'extern "C" int gf8_planar_matmul' in text
     assert "_planar_kernel" in text       # names the TPU kernel it replaces
+    text = (PKG / "csrc" / "gf8_bytes.cu").read_text()
+    assert 'extern "C" int gf8_bytes_matmul' in text
+    assert "gf8_pallas.py::_kernel" in text

@@ -4,7 +4,9 @@ One mixed-size tick (zero-length, sub-stripe, exact-stripe and
 multi-stripe objects) on ISA k3m2 through both packages: shards, CRCs
 and at-rest planes must be identical, and the planar decode must agree
 for every 1- and 2-erasure pattern.  Planes written by one package are
-decoded by the other.  The port runs on ``device="cpu"``.
+decoded by the other.  The byte-at-rest tick of the jerasure pools
+(cauchy_good, liberation, reed_sol_van) is held against the reference's
+per-op functions.  The port runs on ``device="cpu"``.
 """
 
 import itertools
@@ -16,6 +18,7 @@ from ceph_tpu.ec import factory as jfactory
 from ceph_tpu.ec import stripe as jstripe
 from ceph_tpu_torch.ec import ECError, factory
 from ceph_tpu_torch.ec import stripe
+from ceph_tpu_torch.ops.crc32c import crc32c_rows
 
 K, M, UNIT = 3, 2, 64
 N = K + M
@@ -126,3 +129,115 @@ def test_stripe_info_matches_reference():
     for size in SIZES:
         assert ps.shard_size(size) == js.shard_size(size)
         assert ps.object_stripes(size) == js.object_stripes(size)
+
+
+# ---------------------------------------------------------------------------
+# The byte-at-rest tick of the jerasure slice: encode_stripes_multi,
+# decode_stripes_multi and reencode_stripes_multi of the port against the
+# reference's PER-OP encode_stripes / decode_stripes / reencode_stripes.
+# On a CPU JAX backend the reference's *_multi functions take a host GF
+# engine that computes cauchy parity bytewise (it does not check for
+# packetsize), so they are deliberately not used as the oracle here.
+# ---------------------------------------------------------------------------
+
+# (profile, stripe unit): packet codecs at two super-blocks per chunk, and
+# the bytewise reed_sol_van
+JERASURE_POOLS = {
+    "cauchy_good": ({"plugin": "jerasure", "technique": "cauchy_good",
+                     "k": "4", "m": "2", "packetsize": "8"}, 128),
+    "liberation": ({"plugin": "jerasure", "technique": "liberation",
+                    "k": "4", "w": "7", "packetsize": "4"}, 56),
+    "reed_sol_van": ({"plugin": "jerasure", "technique": "reed_sol_van",
+                      "k": "4", "m": "2"}, 64),
+}
+JK, JN = 4, 6
+LOST = [(0,), (3,), (4,), (0, 1), (1, 5), (2, 3), (4, 5)]
+
+
+def _jpool(name):
+    prof, unit = JERASURE_POOLS[name]
+    return (jfactory(dict(prof)), factory(dict(prof), device="cpu"),
+            jstripe.StripeInfo(JK, unit), stripe.StripeInfo(JK, unit))
+
+
+def _jdatas(unit, seed):
+    rng = np.random.default_rng(seed)
+    sizes = [0, 10, JK * unit, 500, 3 * JK * unit + 7]
+    return [rng.integers(0, 256, s, dtype=np.uint8).tobytes() for s in sizes]
+
+
+def _lost_reqs(shards_out, datas, lost):
+    return [({s: sh[s] for s in range(JN) if s not in lost}, len(d))
+            for sh, d in zip(shards_out, datas)]
+
+
+@pytest.mark.parametrize("pool", sorted(JERASURE_POOLS))
+def test_jerasure_encode_stripes_multi_equals_reference_per_op(pool):
+    jc, pc, js, ps = _jpool(pool)
+    datas = _jdatas(ps.chunk_size, 11)
+    got = stripe.encode_stripes_multi(pc, ps, datas,
+                                      want_crcs=[True] * len(datas))
+    for (gs, gc), d in zip(got, datas):
+        want = jstripe.encode_stripes(jc, js, d)
+        assert np.array_equal(gs, want)
+        assert np.array_equal(gs, stripe.encode_stripes(pc, ps, d))
+        assert gc == crc32c_rows(want)
+
+
+@pytest.mark.parametrize("lost", LOST, ids=str)
+@pytest.mark.parametrize("pool", sorted(JERASURE_POOLS))
+def test_jerasure_decode_and_reencode_multi_equal_reference_per_op(pool, lost):
+    jc, pc, js, ps = _jpool(pool)
+    datas = _jdatas(ps.chunk_size, 12)
+    shards = [jstripe.encode_stripes(jc, js, d) for d in datas]
+    reqs = _lost_reqs(shards, datas, lost)
+    got = stripe.decode_stripes_multi(pc, ps, reqs)
+    assert got == datas
+    rebuilt = stripe.reencode_stripes_multi(pc, ps, reqs)
+    for (shmap, size), d, g, full, r in zip(reqs, datas, got, shards,
+                                            rebuilt):
+        assert g == jstripe.decode_stripes(jc, js, shmap, size)
+        assert g == stripe.decode_stripes(pc, ps, shmap, size)
+        assert np.array_equal(r, jstripe.reencode_stripes(jc, js, shmap,
+                                                          size))
+        assert np.array_equal(r, full)
+        assert np.array_equal(r, stripe.reencode_stripes(pc, ps, shmap, size))
+
+
+def test_cauchy_encode_stripes_multi_not_held_to_reference_cpu_multi_fault():
+    """The reference fault: on a CPU JAX backend ``encode_stripes_multi``
+    computes cauchy parity bytewise.  The port's coalesced encode equals
+    the reference's per-op ``encode_stripes`` and its ``codec.encode()``
+    (which agree with the C goldens); the reference's ``*_multi`` CPU
+    result is not used as the oracle."""
+    prof = {"plugin": "jerasure", "technique": "cauchy_good", "k": "4",
+            "m": "2", "packetsize": "8"}
+    jc, pc = jfactory(dict(prof)), factory(dict(prof), device="cpu")
+    js, ps = jstripe.StripeInfo(4, 4096), stripe.StripeInfo(4, 4096)
+    data = np.random.default_rng(0).integers(0, 256, 2 * 4 * 4096,
+                                             dtype=np.uint8).tobytes()
+    (got, _crcs), = stripe.encode_stripes_multi(pc, ps, [data])
+    assert np.array_equal(got, jstripe.encode_stripes(jc, js, data))
+    # per stripe, the shards are the codec's encode() of that stripe
+    for st in range(2):
+        chunk = data[st * 4 * 4096:(st + 1) * 4 * 4096]
+        enc = jc.encode(range(6), chunk)
+        for s in range(6):
+            assert np.array_equal(got[s, st * 4096:(st + 1) * 4096], enc[s])
+    reqs = [({s: got[s] for s in range(2, 6)}, len(data))]
+    assert stripe.decode_stripes_multi(pc, ps, reqs) == [data]
+    (again,) = stripe.reencode_stripes_multi(pc, ps, reqs)
+    assert np.array_equal(again, got)
+
+
+def test_reencode_without_planar_contract_falls_back_to_decode_encode():
+    """A cauchy stripe unit off the w*packetsize quantum has no packet
+    planes; recovery then runs coalesced decode + coalesced encode, and
+    such a unit cannot be encoded at all (jerasure's blocksize rule)."""
+    _jc, pc, _js, _ps = _jpool("cauchy_good")
+    ps = stripe.StripeInfo(JK, 96)
+    with pytest.raises(ECError):
+        stripe.encode_stripes_multi(pc, ps, [b"x" * 100])
+    assert stripe.reencode_stripes_multi(pc, ps, [({}, 0)])[0].shape == \
+        (JN, 0)
+    assert stripe.decode_stripes_multi(pc, ps, [({}, 0)]) == [b""]
