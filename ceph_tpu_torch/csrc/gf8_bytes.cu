@@ -18,32 +18,39 @@
 //
 // The packet codecs (cauchy, liberation family) pass kron(m01, I8): all of
 // their blocks are zero or the identity, so out[j] is the XOR of the data
-// rows that m01 selects.  Blocks are classified once per CTA as zero
-// (skipped), identity (the word is XORed as it is) or general (the
-// multiply above), and a run of input rows without a general block takes
-// a fast path that is only loads and XORs.
+// rows that m01 selects.  Blocks are classified as zero (skipped),
+// identity (the data is XORed as it is) or general (the multiply above,
+// with the block word read from global memory; only general ISA matrices
+// reach it).
 //
-// What bounds it: device-memory bytes.  At the cauchy_good k=8 m=4 w=8
-// packetsize=2048 headline step (r=32 output rows, k=64 input rows,
-// N=262144) it must read 16 MiB and the 128 KiB matrix and write 8 MiB,
-// about 7.55 us at 3.35 TB/s; its XORs take well under 1 us.
+// What bounds it: by its traffic, device-memory bytes.  At the
+// cauchy_good k=8 m=4 w=8 packetsize=2048 headline step (r=32 output
+// rows, k=64 input rows, N=262144) it must read 16 MiB and write 8 MiB,
+// about 7.55 us at 3.35 TB/s.  The first version (one 8-byte word per
+// thread, 16 loads in flight, one CTA per SM, and a second launch to pack
+// the matrix) reached 23 % of that.
 //
-// Design: two launches from one entry point.  pack_blocks_kernel turns the
-// bit-matrix into one 64-bit word per block (byte u = col_u), r*k*8 bytes
-// in a scratch buffer the wrapper allocates.  bytes_matmul_kernel gives
-// each thread one 8-byte column word and up to 32 output rows in register
-// accumulators; rows beyond 32 spread over grid.y.  Input rows pass
-// through shared memory in passes of kPass rows (their block words and a
-// zero/identity/general mask per row), so any k works within a fixed
-// 17 KiB.  Input rows may have any row stride and base alignment (a
-// column slice of a packet-row matrix), and N any value: the unaligned
-// instantiation reads and writes bytewise and masks the ragged edge.
+// Design: the staged kernel of gf2_stream.cuh (persistent grid, a ring of
+// bulk-copied stages per CTA fed by a producer warp, row lists in shared
+// memory, 16-byte vectors XORed into register accumulators, 16-byte
+// stores), which keeps enough bytes in flight; its XOR work, one list
+// entry per identity block, now sets its time.  The matrix arrives as a
+// table of r*k block words (byte u = col_u) followed by one class entry
+// per (group of 32 output rows, input row): the identity mask in the low
+// and the general mask in the high 32 bits.  The identity masks become
+// the row lists; a CTA that finds a general block runs every input row
+// through the zero/identity/general path instead.  The matrix is a
+// constant of the codec, so the caller packs the table once on the host
+// and passes it: the call is one launch.  A caller without a table gets
+// it from pack_blocks_kernel, launched first on the same stream.
 //
-// Like B1 this first version holds few loads in flight per thread and no
-// cp.async/TMA staging, so it is bound by DRAM latency before bandwidth.
+// Calls the staged kernel does not take (row starts, row stride or N not
+// multiples of 16 bytes: a column slice of a packet-row matrix, a ragged
+// width) run the kept kernel: one 8-byte word per thread read and written
+// bytewise with the edge masked, input rows through shared memory in
+// passes of 64, output-row groups of 32 on grid.y.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gf2_stream.cuh"
 
 namespace {
 
@@ -59,16 +66,9 @@ struct Word {
   uint32_t v[kLanes];
 };
 
-template <bool kAligned>
 __device__ __forceinline__ Word load_word(const uint8_t* __restrict__ row,
                                           long long w, long long n) {
   Word x;
-  if (kAligned) {
-    const uint2 t = __ldg(reinterpret_cast<const uint2*>(row) + w);
-    x.v[0] = t.x;
-    x.v[1] = t.y;
-    return x;
-  }
 #pragma unroll
   for (int q = 0; q < kLanes; ++q) x.v[q] = 0u;
   const long long c = w * kWordBytes;
@@ -81,14 +81,9 @@ __device__ __forceinline__ Word load_word(const uint8_t* __restrict__ row,
   return x;
 }
 
-template <bool kAligned>
 __device__ __forceinline__ void store_word(uint8_t* __restrict__ row,
                                            long long w, long long n,
                                            const Word& x) {
-  if (kAligned) {
-    reinterpret_cast<uint2*>(row)[w] = make_uint2(x.v[0], x.v[1]);
-    return;
-  }
   const long long c = w * kWordBytes;
 #pragma unroll
   for (int b = 0; b < kWordBytes; ++b) {
@@ -112,15 +107,9 @@ __device__ __forceinline__ uint32_t apply_block(uint32_t x, uint64_t cols) {
   return y;
 }
 
-// one thread per block: blocks[j * k + i] byte u = col_u of block (j, i)
-__global__ void pack_blocks_kernel(const uint8_t* __restrict__ bm,
-                                   uint64_t* __restrict__ blocks, int r,
-                                   int k) {
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (b >= static_cast<long long>(r) * k) return;
-  const int j = static_cast<int>(b / k);
-  const int i = static_cast<int>(b % k);
+// the 64-bit word of block (j, i): byte u = col_u
+__device__ __forceinline__ uint64_t block_word(const uint8_t* __restrict__ bm,
+                                               int j, int i, int k) {
   const long long ld = 8ll * k;
   uint64_t c = 0ull;
 #pragma unroll
@@ -131,10 +120,36 @@ __global__ void pack_blocks_kernel(const uint8_t* __restrict__ bm,
       c |= static_cast<uint64_t>(row[u] & 1) << (8 * u + t);
     }
   }
-  blocks[b] = c;
+  return c;
 }
 
-template <bool kAligned>
+// one thread per (row group g, input row i): the block words of rows
+// 32g..32g+31 at blocks[j * k + i] and their class entry at
+// blocks[r * k + g * k + i] (identity mask | general mask << 32)
+__global__ void pack_blocks_kernel(const uint8_t* __restrict__ bm,
+                                   uint64_t* __restrict__ blocks, int r,
+                                   int k) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int ngroups = (r + kGroup - 1) / kGroup;
+  if (e >= static_cast<long long>(ngroups) * k) return;
+  const int g = static_cast<int>(e / k);
+  const int i = static_cast<int>(e % k);
+  uint32_t id = 0u, gen = 0u;
+  for (int jj = 0; jj < kGroup && g * kGroup + jj < r; ++jj) {
+    const int j = g * kGroup + jj;
+    const uint64_t c = block_word(bm, j, i, k);
+    blocks[static_cast<long long>(j) * k + i] = c;
+    if (c == kIdentity) {
+      id |= 1u << jj;
+    } else if (c != 0ull) {
+      gen |= 1u << jj;
+    }
+  }
+  blocks[static_cast<long long>(r) * k + e] =
+      id | (static_cast<uint64_t>(gen) << 32);
+}
+
 __global__ void __launch_bounds__(kThreads)
 bytes_matmul_kernel(const uint64_t* __restrict__ blocks,
                     const uint8_t* __restrict__ data, long long ld,
@@ -188,7 +203,7 @@ bytes_matmul_kernel(const uint64_t* __restrict__ blocks,
 #pragma unroll
         for (int a = 0; a < kAhead; ++a) {
           if (a < ahead) {
-            x[a] = load_word<kAligned>(data + (i0 + a0 + a) * ld, w, n);
+            x[a] = load_word(data + (i0 + a0 + a) * ld, w, n);
           }
         }
 #pragma unroll
@@ -207,7 +222,7 @@ bytes_matmul_kernel(const uint64_t* __restrict__ blocks,
 #pragma unroll 1
       for (int a = 0; a < ahead; ++a) {
         const int ii = a0 + a;
-        const Word x = load_word<kAligned>(data + (i0 + ii) * ld, w, n);
+        const Word x = load_word(data + (i0 + ii) * ld, w, n);
         const uint32_t idm = id_mask[ii];
         const uint32_t gm = gen_mask[ii];
 #pragma unroll
@@ -230,22 +245,76 @@ bytes_matmul_kernel(const uint64_t* __restrict__ blocks,
 #pragma unroll
   for (int j = 0; j < kGroup; ++j) {
     if (j < rows) {
-      store_word<kAligned>(out + static_cast<long long>(g0 + j) * n, w, n,
-                           acc[j]);
+      store_word(out + static_cast<long long>(g0 + j) * n, w, n, acc[j]);
     }
   }
 }
 
+// the staged kernel's matrix: the row lists of the identity blocks, and
+// the class entries for the general path, where a general block's word is
+// read from global memory as it is used
+struct BytesPolicy {
+  static constexpr bool kGeneral = true;
+  const uint64_t* blocks;
+
+  __device__ __forceinline__ bool build_table(uint32_t* lists, void* extra,
+                                              int r, int k) const {
+    const int tid = threadIdx.x;
+    const int ngroups = (r + kGroup - 1) / kGroup;
+    const int words = static_cast<int>(gf2::row_list_bytes(ngroups, k) / 4);
+    for (int e = tid; e < words; e += gf2::kConsumers) lists[e] = 0u;
+    gf2::consumer_sync();
+    uint2* classes = static_cast<uint2*>(extra);
+    const uint2* src =
+        reinterpret_cast<const uint2*>(blocks + static_cast<long long>(r) * k);
+    bool general = false;
+    for (int e = tid; e < ngroups * k; e += gf2::kConsumers) {
+      const uint2 c = src[e];
+      classes[e] = c;
+      general |= c.y != 0u;
+      for (uint32_t m = c.x; m; m &= m - 1) {
+        gf2::list_set(lists, k, e / k, e % k, __ffs(m) - 1);
+      }
+    }
+    return general;
+  }
+
+  __device__ __forceinline__ void apply_general(
+      uint4 (&acc)[gf2::kRowsPerThread], const uint4& x, const void* table,
+      int g, int i, int sub, int k) const {
+    const uint2 e = static_cast<const uint2*>(table)[g * k + i];
+#pragma unroll
+    for (int jj = 0; jj < gf2::kRowsPerThread; ++jj) {
+      const int row = sub + gf2::kSubs * jj;  // in the group
+      if ((e.x >> row) & 1u) {
+        gf2::xor4(acc[jj], x);
+      } else if ((e.y >> row) & 1u) {
+        const int j = g * gf2::kGroup + row;
+        const uint64_t c = __ldg(blocks + static_cast<long long>(j) * k + i);
+        acc[jj].x ^= apply_block(x.x, c);
+        acc[jj].y ^= apply_block(x.y, c);
+        acc[jj].z ^= apply_block(x.z, c);
+        acc[jj].w ^= apply_block(x.w, c);
+      }
+    }
+  }
+};
+
 }  // namespace
 
 // bm (8r, 8k) uint8 {0,1} contiguous; data: k rows of n bytes, row i at
-// data + i * ld; out (r, n) uint8 contiguous; blocks: scratch of r*k
-// 64-bit words.  All on the current device.  ``aligned`` promises that
-// data, ld, out and n are multiples of 8.  Launches on ``stream`` without
-// synchronising; returns the first launch error (0 on success).
+// data + i * ld; out (r, n) uint8 contiguous; blocks: r*k block words and
+// ceil(r/32)*k class entries (64-bit each).  All on the current device.
+// With ``pack`` the table is built from bm first (pack_blocks_kernel);
+// without it the caller's table is used as it is and bm is not read.
+// ``staged`` asks for the staged kernel, which wants data, ld, out and n
+// multiples of 16 and its lists (320 bytes for each group of 32 output
+// rows and 16 input rows) and class entries within its table; the kept
+// kernel takes any call.  Launches on ``stream`` without synchronising; returns
+// the first launch error (0 on success).
 extern "C" int gf8_bytes_matmul(const void* bm, const void* data,
                                 long long ld, void* out, void* blocks, int r,
-                                int k, long long n, int aligned,
+                                int k, long long n, int pack, int staged,
                                 void* stream) {
   if (r < 0 || k < 0 || n < 0 || ld < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -253,26 +322,38 @@ extern "C" int gf8_bytes_matmul(const void* bm, const void* data,
   if (r == 0 || n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint64_t* blk = static_cast<uint64_t*>(blocks);
-  const long long nblocks = static_cast<long long>(r) * k;
-  if (nblocks > 0) {
-    pack_blocks_kernel<<<static_cast<unsigned>((nblocks + kThreads - 1) /
+  const long long nclasses = (r + kGroup - 1LL) / kGroup * k;
+  const uint8_t* d = static_cast<const uint8_t*>(data);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  const long long table =
+      gf2::list_bytes((r + kGroup - 1) / kGroup, k) + nclasses * 8;
+  if (staged && !gf2::staged_ok(d, ld, o, n, table)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (pack && nclasses > 0) {
+    pack_blocks_kernel<<<static_cast<unsigned>((nclasses + kThreads - 1) /
                                                kThreads),
                          kThreads, 0, s>>>(static_cast<const uint8_t*>(bm),
                                            blk, r, k);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  if (staged) {
+    return static_cast<int>(
+        gf2::launch_staged(BytesPolicy{blk}, d, ld, o, r, k, n, s));
+  }
   const long long nwords = (n + kWordBytes - 1) / kWordBytes;
   const dim3 grid(static_cast<unsigned>((nwords + kThreads - 1) / kThreads),
                   static_cast<unsigned>((r + kGroup - 1) / kGroup));
-  const uint8_t* d = static_cast<const uint8_t*>(data);
-  uint8_t* o = static_cast<uint8_t*>(out);
-  if (aligned) {
-    bytes_matmul_kernel<true><<<grid, kThreads, 0, s>>>(blk, d, ld, o, r, k,
-                                                        n);
-  } else {
-    bytes_matmul_kernel<false><<<grid, kThreads, 0, s>>>(blk, d, ld, o, r, k,
-                                                         n);
-  }
+  bytes_matmul_kernel<<<grid, kThreads, 0, s>>>(blk, d, ld, o, r, k, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the staged kernel's launch shape on the current device: CTAs of the
+// persistent grid, threads per CTA and dynamic shared memory per CTA
+extern "C" int gf8_bytes_staged_config(int* ctas, int* threads,
+                                       int* smem_bytes) {
+  *threads = gf2::kThreads;
+  *smem_bytes = gf2::kSmemBytes;
+  return static_cast<int>(gf2::persistent_ctas<BytesPolicy>(ctas));
 }

@@ -72,6 +72,16 @@ def _lane_expand(mat_bytes: bytes, shape, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.kron(m01, np.eye(8, dtype=np.uint8))).to(device)
 
 
+@functools.lru_cache(maxsize=64)
+def _lane_blocks(mat_bytes: bytes, shape, device: torch.device) -> torch.Tensor:
+    """Kernel B2's table of the lane-expanded matrix (block words and
+    zero/identity/general classes, ``gf8_bytes_cuda.pack_blocks``), packed
+    on the host once per matrix and device, keyed as ``_lane_expand``."""
+    m01 = np.frombuffer(mat_bytes, dtype=np.uint8).reshape(shape)
+    lane = np.kron(m01, np.eye(8, dtype=np.uint8))
+    return torch.from_numpy(gf8_bytes_cuda.pack_blocks(lane)).to(device)
+
+
 def _pkt_batch_apply(lane_mat: torch.Tensor, data: torch.Tensor, w: int,
                      p: int, src=None) -> torch.Tensor:
     """Packet-interleaved batch apply for bit-matrix codes.
@@ -277,13 +287,13 @@ class _DeviceBitEngine:
         return rmat
 
 
-def _planar_rows_matmul(lane_bitmat: torch.Tensor,
-                        rows: torch.Tensor) -> torch.Tensor:
+def _planar_rows_matmul(lane_bitmat: torch.Tensor, rows: torch.Tensor,
+                        blocks: torch.Tensor) -> torch.Tensor:
     """Byte-operand GF(2) matmul for packet-planar rows (the 8x expansion
-    rides in the lane-expanded matrix): kernel B2 for a CUDA tensor, its
-    plain version for a CPU tensor."""
+    rides in the lane-expanded matrix, ``blocks`` is its cached table):
+    kernel B2 for a CUDA tensor, its plain version for a CPU tensor."""
     _record_kernel("ec_matmul", rows.numel())
-    return gf8_bytes_cuda.bitmatrix_matmul(lane_bitmat, rows)
+    return gf8_bytes_cuda.bitmatrix_matmul(lane_bitmat, rows, blocks)
 
 
 class MatrixCodec(ErasureCode):
@@ -440,6 +450,12 @@ class BitmatrixCodec(MatrixCodec):
         m01 = np.ascontiguousarray(m01, dtype=np.uint8)
         return _lane_expand(m01.tobytes(), m01.shape, self.device)
 
+    def _lane_and_blocks(self, m01: np.ndarray):
+        """The lane-expanded matrix and its kernel table, both cached."""
+        m01 = np.ascontiguousarray(m01, dtype=np.uint8)
+        key = (m01.tobytes(), m01.shape, self.device)
+        return _lane_expand(*key), _lane_blocks(*key)
+
     # -- packet layout ------------------------------------------------------
 
     def stripe_unit(self, default: int) -> int:
@@ -548,8 +564,9 @@ class BitmatrixCodec(MatrixCodec):
                                       packetsize=self.packetsize)
 
     def encode_planar(self, pb):
-        lane = self._lane(self._encode_bits())
-        return pb.with_planes(_planar_rows_matmul(lane, pb.planes), self.m)
+        lane, blocks = self._lane_and_blocks(self._encode_bits())
+        return pb.with_planes(_planar_rows_matmul(lane, pb.planes, blocks),
+                              self.m)
 
     def decode_planar(self, erasures, pb, want=None):
         from ceph_tpu_torch.ec.planar import _select_chunk_rows
@@ -558,6 +575,8 @@ class BitmatrixCodec(MatrixCodec):
             want = tuple(erasures)
         avail = tuple(i for i in range(self.k + self.m) if i not in erasures)
         src = avail[: self.k]
-        lane = self._lane(self._decode_bits(src, tuple(want)))
+        lane, blocks = self._lane_and_blocks(
+            self._decode_bits(src, tuple(want)))
         src_rows = _select_chunk_rows(pb.planes, self.w, src)
-        return pb.with_planes(_planar_rows_matmul(lane, src_rows), len(want))
+        return pb.with_planes(_planar_rows_matmul(lane, src_rows, blocks),
+                              len(want))

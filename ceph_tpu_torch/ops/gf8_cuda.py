@@ -5,7 +5,12 @@ Counterpart of ``ceph_tpu/ops/gf8_pallas.py::planar_matmul`` (kernel
 built by ``_build`` and bound with ``ctypes``.  ``planar_matmul`` launches
 it for a CUDA tensor and raises if it cannot; a CPU tensor goes to the
 plain version ``planar_matmul_ref``.  The TPU path sent the ragged
-column tail to XLA; here the kernel takes every column count itself.
+column tail to XLA; here the library takes every column count itself.
+
+Two kernel paths: the staged kernel takes calls whose rows are multiples
+of 16 bytes and whose matrix fits its mask table (every call of the codec
+and stripe paths); the kept kernel, bytewise with the edge masked, takes
+the rest.
 """
 
 from __future__ import annotations
@@ -14,8 +19,24 @@ import ctypes
 
 import torch
 
-# launches of the CUDA kernel in this process; reset it to 0 to count a run
+# launches of the CUDA kernel in this process, and those of them that took
+# the kept (bytewise) path; reset both to 0 to count a run
 launches = 0
+kept_launches = 0
+
+# the staged kernel's limits (csrc/gf2_stream.cuh): 16-byte rows, and its
+# table within 16 KiB
+_VEC = 16
+_GROUP = 32
+_PASS = 16
+TABLE_BYTES = 16 << 10
+
+
+def list_bytes(r: int, k: int) -> int:
+    """Bytes of the staged kernel's lists for r output and k input rows:
+    320 for each group of 32 output rows and 16 input rows (64 of row
+    lists, 256 of subset lists)."""
+    return -(-r // _GROUP) * -(-k // _PASS) * 320
 
 _fn = None
 
@@ -63,10 +84,33 @@ def _kernel():
     return _fn
 
 
+def read_staged_config(fn, device=None):
+    """Call a library's ``*_staged_config`` C function on a CUDA device:
+    (CTAs of the persistent grid, threads per CTA, dynamic shared memory
+    bytes per CTA)."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    fn.argtypes = [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*(ctypes.addressof(v) for v in vals))
+    if err:
+        raise RuntimeError(f"staged kernel config failed: CUDA error {err}")
+    return tuple(v.value for v in vals)
+
+
+def staged_config(device=None):
+    """(CTAs of the persistent grid, threads per CTA, dynamic shared
+    memory bytes per CTA) of the staged kernel on a CUDA device."""
+    from ceph_tpu_torch.ops import _build
+
+    return read_staged_config(
+        _build.load("gf8_planar").gf8_planar_staged_config, device)
+
+
 def planar_matmul(bitmat: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     """bitmat (rw, kw) {0,1} uint8 x planes (kw, npk) uint8 -> (rw, npk)
     uint8, mod 2 on packed bit-planes."""
-    global launches
+    global launches, kept_launches
     if bitmat.device.type == "cpu" and planes.device.type == "cpu":
         return planar_matmul_ref(bitmat, planes)
     if not (bitmat.is_cuda and planes.is_cuda
@@ -89,13 +133,15 @@ def planar_matmul(bitmat: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     if rw == 0 or npk == 0:
         return out
     fn = _kernel()
-    aligned = (npk % 8 == 0 and planes.data_ptr() % 8 == 0
-               and out.data_ptr() % 8 == 0)
+    staged = (npk % _VEC == 0 and planes.data_ptr() % _VEC == 0
+              and out.data_ptr() % _VEC == 0
+              and list_bytes(rw, kw) <= TABLE_BYTES)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     with torch.cuda.device(planes.device):
         err = fn(bitmat.data_ptr(), planes.data_ptr(), out.data_ptr(),
-                 rw, kw, npk, int(aligned), stream)
+                 rw, kw, npk, int(staged), stream)
     if err:
         raise RuntimeError(f"gf8_planar_matmul launch failed: CUDA error {err}")
     launches += 1
+    kept_launches += not staged
     return out

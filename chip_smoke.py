@@ -17,7 +17,11 @@ non-zero if any of them fails:
    path (encode, decodes with 1, 2 and 4 erasures, the tick), the encode
    matrices of liberation k=7 w=7, blaum_roth k=6 w=6, liber8tion k=8 and
    cauchy_good w=16 (with a planar encode/decode of each against the host
-   reference), a misaligned column slice and N in {1, 7, 4097};
+   reference), a misaligned column slice and N in {1, 7, 4097}; both at
+   the staged kernel's edges (N of one vector, a tile less or more one
+   vector, several tiles and a vector, fewer tiles than CTAs, k=128 with
+   r=64, k=49), each call checked to take the path it should (staged or
+   kept), and B2 with its host-packed table and with the on-card packing;
 2. ISA path (ISA k=8 m=4, bit-planar, kernel B1): 4096 stripes x 8 x
    512 B per step through ``to_planar`` -> ``encode_planar`` ->
    ``to_batch`` against the host GF reference, ``decode_planar`` for 1, 2
@@ -33,13 +37,18 @@ non-zero if any of them fails:
    ``reencode_stripes_multi``, and a small tick of Ceph's default profile
    (jerasure reed_sol_van k=2 m=1, kernel B1) through
    ``encode_planes_multi`` / ``decode_planes_multi``;
-4. timing: CUDA-event medians of B1 and B2 and of their plain versions at
-   their headline shapes (L2 flushed before each launch), and the encode
-   step of each path split into its parts.
+4. one launch: a torch.profiler trace of one cauchy ``encode_planar``
+   call shows exactly one device kernel, B2's staged kernel, and no
+   ``pack_blocks_kernel``;
+5. timing: CUDA-event medians of B1 and B2 and of their plain versions at
+   their headline shapes (L2 flushed before each launch), each kernel's
+   share of its bound, a same-traffic yardstick (``torch.bitwise_xor`` of
+   the two 8 MiB halves of a (64, 262144) uint8 tensor into 8 MiB), and
+   the encode step of each path split into its parts.
 
 Phases 2 and 3 are the main paths: kernel launch counts are set to 0 just
-before each and read just after, and every kernel of the path must have
-launched.  The last lines are the card's name and power limit, one JSON
+before each and read just after, every kernel of the path must have
+launched, and every launch must have taken the staged path.  The last lines are the card's name and power limit, one JSON
 object describing each kernel, and ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits non-zero.
 """
@@ -61,8 +70,11 @@ OPS_32BIT_PER_S = 67e12
 
 SEED = 20261016
 
-# device clock cycles of the spin ahead of each timed call (~0.3 ms)
+# device clock cycles of the spin ahead of each timed call (~0.3 ms), and
+# ahead of each timed encode step, whose dozens of small launches can take
+# the host longer than that to enqueue
 SPIN_CYCLES = 500_000
+STEP_SPIN_CYCLES = 4 * SPIN_CYCLES
 
 # one OSD tick: 256 ops of 64 KiB objects and a few ragged sizes
 TICK_SIZES = [64 << 10] * 256 + [0, 100, 40000, 200 << 10, (1 << 20) + 1]
@@ -73,6 +85,13 @@ TICK_SIZES = [64 << 10] * 256 + [0, 100, 40000, 200 << 10, (1 << 20) + 1]
 CAUCHY_PROFILE = {"plugin": "jerasure", "technique": "cauchy_good",
                   "k": "8", "m": "4", "packetsize": "2048"}
 HEADLINE_STRIPES = 128
+
+# the staged kernels' column tile (csrc/gf2_stream.cuh kTile) and the
+# widths at its edges: one 16-byte vector, a tile less or more a vector,
+# several tiles and a vector (each a single item or a few: fewer tiles
+# than the persistent grid has CTAs)
+TILE = 1024
+EDGE_WIDTHS = [16, TILE - 16, TILE, TILE + 16, 5 * TILE + 16]
 
 # the packet codecs checked at their own geometry (packetsize 2048)
 PACKET_CHECKS = [
@@ -87,7 +106,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_median_ms(fn, reps: int, flush=None) -> float:
+def cuda_median_ms(fn, reps: int, flush=None, spin=SPIN_CYCLES) -> float:
     """Median over ``reps`` single calls, timed with CUDA events; the L2
     cache is overwritten before each call when ``flush`` is given.  A
     device-side spin before the start event keeps the card busy while the
@@ -101,7 +120,7 @@ def cuda_median_ms(fn, reps: int, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -131,6 +150,11 @@ def profiled_kernel_ms(fn, kernel_name: str, reps: int, flush):
     return statistics.median(times) / 1e3 if times else None
 
 
+def took_path(module, before: int) -> str:
+    """"kept" when the wrapper's kept-path count moved since ``before``."""
+    return "kept" if module.kept_launches > before else "staged"
+
+
 def phase_kernel(codec, rng):
     """B1 against its plain version on the card; returns max |diff|."""
     import torch
@@ -155,18 +179,30 @@ def phase_kernel(codec, rng):
     tick_stripes = sum(-(-s // (8 * 4096)) for s in TICK_SIZES)
     cases.append(("stripe tick encode", eng._enc_bitmat, 64,
                   tick_stripes * 4096 // 8))
+    # the staged kernel's edges, and k=128 with r=64 and k=49
+    for npk in EDGE_WIDTHS:
+        cases.append((f"staged edge npk={npk}", eng._enc_bitmat, 64, npk))
+    for rw, kw in [(64, 128), (32, 49)]:
+        bm = torch.from_numpy(
+            rng.integers(0, 2, (rw, kw), dtype=np.uint8)).cuda()
+        cases.append((f"staged edge r={rw} k={kw}", bm, kw, 4 * TILE + 16))
     worst = 0
     for name, bm, kw, npk in cases:
         planes = torch.from_numpy(
             rng.integers(0, 256, (kw, npk), dtype=np.uint8)).cuda()
+        kept = gf8_cuda.kept_launches
         got = gf8_cuda.planar_matmul(bm, planes)
+        path = took_path(gf8_cuda, kept)
         want = gf8_cuda.planar_matmul_ref(bm, planes)
         torch.cuda.synchronize()
         diff = int((got.int() - want.int()).abs().max()) if npk else 0
         worst = max(worst, diff)
         if not torch.equal(got, want):
             raise AssertionError(f"B1 differs from its plain version: {name}")
-        log(f"kernel: B1 bit-exact, {name}, bitmat {tuple(bm.shape)}")
+        if path != ("staged" if npk % 16 == 0 else "kept"):
+            raise AssertionError(f"B1 took the {path} path: {name}")
+        log(f"kernel: B1 bit-exact, {name}, bitmat {tuple(bm.shape)}, "
+            f"{path} path")
     return worst
 
 
@@ -297,20 +333,31 @@ def host_packet_parity(codec, batch: np.ndarray) -> np.ndarray:
     return from_packet_rows(prow, b, s, w, p)
 
 
-def check_b2(name, lane, rows):
-    """B2 against its plain version on the same operands; max |diff|."""
+def check_b2(name, lane, rows, blocks=None):
+    """B2 against its plain version on the same operands, with the host
+    table ``blocks`` or packed on the card; checks that the call took the
+    staged path exactly when its rows are 16-byte aligned.  Max |diff|."""
     import torch
 
     from ceph_tpu_torch.ops import gf8_bytes_cuda
 
-    got = gf8_bytes_cuda.bitmatrix_matmul(lane, rows)
+    kept = gf8_bytes_cuda.kept_launches
+    got = gf8_bytes_cuda.bitmatrix_matmul(lane, rows, blocks)
+    path = took_path(gf8_bytes_cuda, kept)
     want = gf8_bytes_cuda.bitmatrix_matmul_ref(lane, rows)
     torch.cuda.synchronize()
     diff = int((got.int() - want.int()).abs().max()) if got.numel() else 0
     if diff or not torch.equal(got, want):
         raise AssertionError(f"B2 differs from its plain version: {name}")
+    n = rows.shape[1]
+    aligned = (n % 16 == 0 and rows.data_ptr() % 16 == 0
+               and (rows.shape[0] < 2 or rows.stride(0) % 16 == 0))
+    if path != ("staged" if aligned else "kept"):
+        raise AssertionError(f"B2 took the {path} path: {name}")
     log(f"kernel: B2 bit-exact, {name}, bitmat {tuple(lane.shape)} x data "
-        f"{tuple(rows.shape)}")
+        f"{tuple(rows.shape)}, "
+        f"{'host table' if blocks is not None else 'packed on the card'}, "
+        f"{path} path")
     return diff
 
 
@@ -337,34 +384,48 @@ def phase_kernel_b2(codec, rng):
     rows = torch.from_numpy(
         rng.integers(0, 256, ((k + codec.m) * w, n + 8), dtype=np.uint8)
     ).cuda()
-    enc = codec._lane(codec._encode_bits())
-    worst = max(worst, check_b2("cauchy headline encode", enc,
-                                rows[:k * w, :n]))
+    enc, enc_blocks = codec._lane_and_blocks(codec._encode_bits())
+    worst = max(worst, check_b2("cauchy headline encode, row stride N+8",
+                                enc, rows[:k * w, :n], enc_blocks))
+    headline = rows[:k * w, :n].contiguous()
+    worst = max(worst, check_b2("cauchy headline encode", enc, headline,
+                                enc_blocks))
+    worst = max(worst, check_b2("cauchy headline encode", enc, headline))
     for er in [(2,), (0, 9), (1, 4, 8, 11)]:
         src = tuple(i for i in range(k + codec.m) if i not in er)[:k]
-        dec = codec._lane(codec._decode_bits(src, er))
+        dec, dec_blocks = codec._lane_and_blocks(codec._decode_bits(src, er))
         sel = torch.cat([rows[s * w:(s + 1) * w, :n] for s in src])
-        worst = max(worst, check_b2(f"cauchy headline decode {er}", dec, sel))
+        worst = max(worst, check_b2(f"cauchy headline decode {er}", dec, sel,
+                                    dec_blocks))
     tick_stripes = sum(-(-s // (8 * 16384)) for s in TICK_SIZES)
     tick = torch.from_numpy(rng.integers(
         0, 256, (k * w, tick_stripes * p), dtype=np.uint8)).cuda()
-    worst = max(worst, check_b2("cauchy stripe tick encode", enc, tick))
+    worst = max(worst, check_b2("cauchy stripe tick encode", enc, tick,
+                                enc_blocks))
     # a column slice off any word boundary, and ragged widths
     for n_edge in (n - 8, 1, 7, 4097):
         view = rows[:k * w, 3:3 + n_edge]
         worst = max(worst, check_b2(
             f"cauchy encode, slice at column 3, N={n_edge}", enc, view))
+    # the staged kernel's edges
+    for n_edge in EDGE_WIDTHS:
+        worst = max(worst, check_b2(
+            f"cauchy encode, staged edge N={n_edge}", enc,
+            headline[:, :n_edge].contiguous(), enc_blocks))
     # the other packet codecs at their own geometry: kernel, then a planar
     # encode/decode against the host reference
     for prof in PACKET_CHECKS:
         pc = factory({"plugin": "jerasure", "packetsize": "2048", **prof})
         name = f"{pc.technique} k{pc.k}m{pc.m} w{pc.w}"
-        lane = pc._lane(pc._encode_bits())
+        lane, blocks = pc._lane_and_blocks(pc._encode_bits())
         batch = rng.integers(0, 256, (16, pc.k, pc.w * pc.packetsize),
                              dtype=np.uint8)
         prow = torch.from_numpy(to_packet_rows(batch, pc.w,
                                                pc.packetsize)).cuda()
-        worst = max(worst, check_b2(f"{name} encode", lane, prow))
+        worst = max(worst, check_b2(f"{name} encode", lane, prow, blocks))
+        worst = max(worst, check_b2(
+            f"{name} encode, staged edge N={TILE + 16}", lane,
+            prow[:, :TILE + 16].contiguous(), blocks))
         parity = pc.encode_planar(pc.to_planar(batch)).to_batch().cpu().numpy()
         if not np.array_equal(parity, host_packet_parity(pc, batch)):
             raise AssertionError(f"{name}: planar encode differs from host")
@@ -513,6 +574,30 @@ def phase_default_profile_tick():
         "round-trip with either data shard lost")
 
 
+def phase_one_launch(codec, data):
+    """One warm cauchy ``encode_planar`` call under torch.profiler: exactly
+    one device kernel, B2's staged kernel, and no ``pack_blocks_kernel``
+    (the codec passes its cached host-packed table)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pb = codec.to_planar(torch.from_numpy(data).cuda())
+    codec.encode_planar(pb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        codec.encode_planar(pb)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    log(f"one launch: a cauchy encode_planar call ran {len(names)} device "
+        f"kernel(s): {names}")
+    if len(names) != 1 or "BytesPolicy" not in names[0] \
+            or any("pack_blocks" in nm for nm in names):
+        raise AssertionError("a cauchy encode_planar call is not one launch "
+                             f"of B2's staged kernel: {names}")
+
+
 def _bound(nbytes: int, xors: float):
     """(bound ms, "bytes" or "operations") for a kernel call that must
     move ``nbytes`` and do ``xors`` 32-bit XORs."""
@@ -530,13 +615,15 @@ def time_encode_step(codec, data, flush, label: str, card: str) -> float:
     data_dev = torch.from_numpy(data).cuda()
     enc_ms = cuda_median_ms(
         lambda: codec.encode_planar(codec.to_planar(data_dev)).to_batch(), 10,
-        flush)
+        flush, STEP_SPIN_CYCLES)
     pb = codec.to_planar(data_dev)
     enc_planar_ms = cuda_median_ms(lambda: codec.encode_planar(pb), 20, flush)
-    to_planar_ms = cuda_median_ms(lambda: codec.to_planar(data_dev), 10, flush)
+    to_planar_ms = cuda_median_ms(lambda: codec.to_planar(data_dev), 10, flush,
+                                  STEP_SPIN_CYCLES)
     par = codec.encode_planar(pb)
     to_batch_ms = cuda_median_ms(
-        lambda: par.with_planes(par.planes).to_batch(), 10, flush)
+        lambda: par.with_planes(par.planes).to_batch(), 10, flush,
+        STEP_SPIN_CYCLES)
     step_bytes = data.size
     log(f"timing: {label} encode step (to_planar + encode_planar + to_batch,"
         f" device-resident {step_bytes} B) {enc_ms:.6f} ms = "
@@ -547,7 +634,70 @@ def time_encode_step(codec, data, flush, label: str, card: str) -> float:
     return enc_ms
 
 
-def phase_timing(codec, data, card: str):
+class CleanL2Flush:
+    """An L2 flush that leaves the cache clean: it writes 256 MiB, then
+    reads 128 MiB, so the timed call finds no dirty lines of the flush to
+    write back.  (The plain flush, ``zero_`` of 256 MiB, leaves the L2
+    full of dirty lines, and every call timed after it pays for writing
+    back as many as its own traffic evicts.)"""
+
+    def __init__(self):
+        import torch
+
+        self.dirty = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.clean = torch.ones(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def zero_(self):
+        self.dirty.zero_()
+        self.clean.max()
+
+
+def phase_clean_l2(isa, cauchy, card: str):
+    """The yardstick, B1 and B2 at their headline shapes again, timed after
+    the clean flush."""
+    import torch
+
+    from ceph_tpu_torch.ops import gf8_bytes_cuda, gf8_cuda
+
+    rng = np.random.default_rng(SEED + 7)
+    a = torch.from_numpy(
+        rng.integers(0, 256, (64, 262144), dtype=np.uint8)).cuda()
+    o = torch.empty((32, 262144), dtype=torch.uint8, device="cuda")
+    lane, blocks = cauchy._lane_and_blocks(cauchy._encode_bits())
+    bm = isa.engine._enc_bitmat
+    flush = CleanL2Flush()
+    yard = cuda_median_ms(lambda: torch.bitwise_xor(a[:32], a[32:], out=o),
+                          50, flush)
+    b1 = cuda_median_ms(lambda: gf8_cuda.planar_matmul(bm, a), 50, flush)
+    b2 = cuda_median_ms(
+        lambda: gf8_bytes_cuda.bitmatrix_matmul(lane, a, blocks), 50, flush)
+    log(f"timing: after a flush that leaves the L2 clean: yardstick "
+        f"{yard:.6f} ms, B1 {b1:.6f} ms, B2 {b2:.6f} ms [{card}]")
+
+
+def phase_yardstick(card: str) -> float:
+    """The same traffic as B1 and B2 at their headline shapes, by one
+    PyTorch call: ``torch.bitwise_xor`` of the two (32, 262144) halves of
+    a (64, 262144) uint8 tensor into (32, 262144), 16 MiB read and 8 MiB
+    written; not the kernels' function, only what bandwidth the card
+    reaches for this traffic."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 6)
+    a = torch.from_numpy(
+        rng.integers(0, 256, (64, 262144), dtype=np.uint8)).cuda()
+    o = torch.empty((32, 262144), dtype=torch.uint8, device="cuda")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ms = cuda_median_ms(lambda: torch.bitwise_xor(a[:32], a[32:], out=o), 50,
+                        flush)
+    nbytes = 3 * o.numel()
+    log(f"timing: same-traffic yardstick, torch.bitwise_xor (64x262144 ->"
+        f" 32x262144 uint8, {nbytes} bytes) median {ms:.6f} ms = "
+        f"{nbytes / ms / 1e6:.3f} GB/s [{card}]")
+    return ms
+
+
+def phase_timing(codec, data, card: str, yard_ms: float):
     """B1 at the ISA headline shape, and the ISA encode step; returns the
     kernel's numbers."""
     import torch
@@ -565,14 +715,16 @@ def phase_timing(codec, data, card: str):
     plain_ms = cuda_median_ms(
         lambda: gf8_cuda.planar_matmul_ref(bm, planes), 10, flush)
     dev_ms = profiled_kernel_ms(lambda: gf8_cuda.planar_matmul(bm, planes),
-                                "planar_matmul_kernel", 30, flush)
+                                "PlanarPolicy", 30, flush)
     nbytes = kw * npk + rw * npk + rw * kw
     xors = int(bm.sum().item()) * npk / 4        # 32-bit XORs
     bound_ms, bound_by, bytes_ms, ops_ms = _bound(nbytes, xors)
     log(f"timing: B1 headline ({rw}x{kw} x {kw}x{npk}) median {ms:.6f} ms, "
         f"plain version {plain_ms:.6f} ms, bound {bound_ms:.6f} ms"
         f" ({nbytes} bytes -> {bytes_ms:.6f} ms; {xors:.0f} XORs -> "
-        f"{ops_ms:.6f} ms); profiler device time of the kernel alone "
+        f"{ops_ms:.6f} ms), {100 * bound_ms / ms:.1f} % of the bound; "
+        f"same-traffic yardstick {yard_ms:.6f} ms; profiler device time of "
+        "the kernel alone "
         + ("not measured" if dev_ms is None else f"{dev_ms:.6f} ms")
         + f" [{card}]")
     time_encode_step(codec, data, flush, "ISA k8m4", card)
@@ -580,42 +732,41 @@ def phase_timing(codec, data, card: str):
             "bound_by": bound_by}
 
 
-def phase_timing_b2(codec, data, card: str):
-    """B2 at the cauchy headline lane shape, and the cauchy encode step;
-    returns the kernel's numbers."""
+def phase_timing_b2(codec, data, card: str, yard_ms: float):
+    """B2 at the cauchy headline lane shape, as the codec calls it (with
+    its host-packed table), and the cauchy encode step; returns the
+    kernel's numbers."""
     import torch
 
     from ceph_tpu_torch.ops import gf8_bytes_cuda
 
     rng = np.random.default_rng(SEED + 3)
     m01 = codec._encode_bits()
-    lane = codec._lane(m01)
+    lane, blocks = codec._lane_and_blocks(m01)
     rw, kw = (int(x) for x in lane.shape)
     n = HEADLINE_STRIPES * codec.packetsize   # packet-row bytes of one step
     rows = torch.from_numpy(
         rng.integers(0, 256, (kw // 8, n), dtype=np.uint8)).cuda()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    ms = cuda_median_ms(lambda: gf8_bytes_cuda.bitmatrix_matmul(lane, rows),
-                        50, flush)
+    ms = cuda_median_ms(
+        lambda: gf8_bytes_cuda.bitmatrix_matmul(lane, rows, blocks), 50,
+        flush)
     plain_ms = cuda_median_ms(
         lambda: gf8_bytes_cuda.bitmatrix_matmul_ref(lane, rows), 10, flush)
     dev_ms = profiled_kernel_ms(
-        lambda: gf8_bytes_cuda.bitmatrix_matmul(lane, rows),
-        "bytes_matmul_kernel", 30, flush)
-    pack_ms = profiled_kernel_ms(
-        lambda: gf8_bytes_cuda.bitmatrix_matmul(lane, rows),
-        "pack_blocks_kernel", 30, flush)
-    nbytes = (kw // 8) * n + (rw // 8) * n + rw * kw
+        lambda: gf8_bytes_cuda.bitmatrix_matmul(lane, rows, blocks),
+        "BytesPolicy", 30, flush)
+    # the table is r*k block words and class entries, read once
+    nbytes = (kw // 8) * n + (rw // 8) * n + int(blocks.numel()) * 8
     xors = int(m01.sum()) * n / 4                # 32-bit XORs of whole rows
     bound_ms, bound_by, bytes_ms, ops_ms = _bound(nbytes, xors)
-    log(f"timing: B2 headline lane ({rw}x{kw} x {kw // 8}x{n}) median "
-        f"{ms:.6f} ms, plain version {plain_ms:.6f} ms, bound "
+    log(f"timing: B2 headline lane ({rw}x{kw} x {kw // 8}x{n}, host table) "
+        f"median {ms:.6f} ms, plain version {plain_ms:.6f} ms, bound "
         f"{bound_ms:.6f} ms ({nbytes} bytes -> {bytes_ms:.6f} ms; "
-        f"{xors:.0f} XORs -> {ops_ms:.6f} ms); profiler device time of "
-        "bytes_matmul_kernel "
+        f"{xors:.0f} XORs -> {ops_ms:.6f} ms), "
+        f"{100 * bound_ms / ms:.1f} % of the bound; same-traffic yardstick "
+        f"{yard_ms:.6f} ms; profiler device time of the kernel alone "
         + ("not measured" if dev_ms is None else f"{dev_ms:.6f} ms")
-        + ", of pack_blocks_kernel "
-        + ("not measured" if pack_ms is None else f"{pack_ms:.6f} ms")
         + f" [{card}]")
     time_encode_step(codec, data, flush, "cauchy_good k8m4 packetsize 2048",
                      card)
@@ -638,14 +789,23 @@ def main() -> int:
     log(f"build: {sorted(_build.build_logs) or 'cached'} in "
         f"{time.perf_counter() - t0:.3f} s")
     for stem, text in _build.build_logs.items():
+        kernel = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build: {stem}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = ("staged" if "staged_kernel" in line else
+                          "pack" if "pack_blocks" in line else "kept")
+            elif "registers" in line or "spill" in line:
+                log(f"build: {stem} {kernel} kernel: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip()
+    for name, mod in (("B1", gf8_cuda), ("B2", gf8_bytes_cuda)):
+        ctas, threads, smem = mod.staged_config()
+        log(f"build: {name} staged kernel: persistent grid of {ctas} CTAs x "
+            f"{threads} threads, {smem} bytes of dynamic shared memory per "
+            "CTA")
     rng = np.random.default_rng(SEED)
     isa = factory({"plugin": "isa", "k": "8", "m": "4"})
     cauchy = factory(CAUCHY_PROFILE)
@@ -653,40 +813,55 @@ def main() -> int:
     b1_err = phase_kernel(isa, rng)
     b2_err = phase_kernel_b2(cauchy, rng)
 
+    def reset_counts():
+        for mod in (gf8_cuda, gf8_bytes_cuda):
+            mod.launches = 0
+            mod.kept_launches = 0
+        KERNELS.reset()
+
+    def path_counts(name, mod):
+        return (f"{name} launches {mod.launches} ({mod.launches - mod.kept_launches}"
+                f" staged, {mod.kept_launches} kept)")
+
     # main path of the ISA slice: counts from 0 just before, read just after
-    gf8_cuda.launches = 0
-    gf8_bytes_cuda.launches = 0
-    KERNELS.reset()
+    reset_counts()
     data = phase_codec(isa, rng)
     phase_stripe(isa)
     torch.cuda.synchronize()
     b1_launches = gf8_cuda.launches
-    log(f"main path (ISA): B1 launches {b1_launches}, B2 launches "
-        f"{gf8_bytes_cuda.launches}; counters "
+    isa_kept = gf8_cuda.kept_launches + gf8_bytes_cuda.kept_launches
+    log(f"main path (ISA): {path_counts('B1', gf8_cuda)}, "
+        f"{path_counts('B2', gf8_bytes_cuda)}; counters "
         f"{json.dumps(KERNELS.dump()['device_kernels'], sort_keys=True)}")
     if b1_launches <= 0:
         raise AssertionError("the ISA path never launched kernel B1")
+    if isa_kept:
+        raise AssertionError("an ISA main-path launch took the kept path")
 
     # main path of the jerasure slice
-    gf8_cuda.launches = 0
-    gf8_bytes_cuda.launches = 0
-    KERNELS.reset()
+    reset_counts()
     cdata = phase_codec_cauchy(cauchy, rng)
     phase_stripe_cauchy(cauchy)
     phase_default_profile_tick()
     torch.cuda.synchronize()
     b2_launches = gf8_bytes_cuda.launches
     j_b1 = gf8_cuda.launches
-    log(f"main path (jerasure): B2 launches {b2_launches}, B1 launches "
-        f"{j_b1}; counters "
+    j_kept = gf8_cuda.kept_launches + gf8_bytes_cuda.kept_launches
+    log(f"main path (jerasure): {path_counts('B2', gf8_bytes_cuda)}, "
+        f"{path_counts('B1', gf8_cuda)}; counters "
         f"{json.dumps(KERNELS.dump()['device_kernels'], sort_keys=True)}")
     if b2_launches <= 0:
         raise AssertionError("the jerasure path never launched kernel B2")
     if j_b1 <= 0:
         raise AssertionError("the default-profile tick never launched B1")
+    if j_kept:
+        raise AssertionError("a jerasure main-path launch took the kept path")
 
-    t1 = phase_timing(isa, data, card)
-    t2 = phase_timing_b2(cauchy, cdata, card)
+    phase_one_launch(cauchy, cdata)
+    yard_ms = phase_yardstick(card)
+    t1 = phase_timing(isa, data, card, yard_ms)
+    t2 = phase_timing_b2(cauchy, cdata, card, yard_ms)
+    phase_clean_l2(isa, cauchy, card)
     log(card)
     kernels = [{
         "name": "B1 planar GF(2) matmul",

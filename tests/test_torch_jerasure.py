@@ -9,6 +9,8 @@ reference on JAX-CPU.  Inputs are seeded numpy; every comparison is exact
   allows (7 and 6 for the liberation family, 8, 16, 32);
 - ``encode``/``decode_concat``, ``encode_batch``/``decode_batch`` and the
   packet-planar ``encode_planar``/``decode_planar`` of every technique;
+- the table kernel B2 reads for each packet technique's encode and decode
+  matrices (block words and classes, packed on the host and cached);
 - the jerasure rows of ``tests/golden/ec_golden.jsonl`` replayed through
   the port.  ``reed_sol_*`` at w=16/32 encode only with the gfw slice:
   their rows check the coding matrix and that encode says so.
@@ -201,6 +203,32 @@ def test_batch_and_planar_paths_equal_reference(prof):
                                             want=want).planes))
             assert np.array_equal(_np(pdec.to_batch()),
                                   full[:, list(want), :])
+
+
+@pytest.mark.parametrize("prof", [p for p in PROFILES if p[4]], ids=_ids)
+def test_packet_codec_passes_b2_its_cached_lane_table(prof):
+    """encode_planar/decode_planar hand kernel B2 the host-packed table of
+    their lane matrix: zero and identity blocks only, the identity mask
+    being the 0/1 matrix itself, one cached object per matrix."""
+    _jc, pc = _pair(*prof)
+    src = tuple(range(1, pc.k + 1))
+    for m01 in (pc._encode_bits(), pc._decode_bits(src, (0,))):
+        lane, blocks = pc._lane_and_blocks(m01)
+        assert lane is pc._lane(m01)
+        assert blocks is pc._lane_and_blocks(m01)[1]
+        table = blocks.numpy().view(np.uint64)
+        assert np.array_equal(table,
+                              gf8_bytes_cuda.pack_blocks(lane.numpy())
+                              .view(np.uint64))
+        r, c = m01.shape
+        words = table[:r * c].reshape(r, c)
+        assert np.array_equal(words != 0, m01.astype(bool))
+        assert set(np.unique(words).tolist()) <= {0, 0x8040201008040201}
+        classes = table[r * c:].reshape(-1, c)
+        ident = np.zeros_like(classes)
+        for j in range(r):
+            ident[j // 32] |= m01[j].astype(np.uint64) << np.uint64(j % 32)
+        assert np.array_equal(classes, ident)
 
 
 def _golden():
