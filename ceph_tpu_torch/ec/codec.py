@@ -6,20 +6,22 @@ ISA and jerasure plugins (reference ErasureCodeIsa.cc:128 encode,
 calls ISA-L's ``ec_encode_data`` or jerasure's encoders, the port computes
 the identical math as one GF(2) matmul:
 
-- ``MatrixCodec`` (ISA, jerasure reed_sol_*): bytewise GF(2^8) codes.  The
-  byte layout (``encode_chunks``/``encode_batch`` and their decodes) runs
-  ``gf8.bitmatrix_matmul``, a float32 ``torch.matmul`` on unpacked bits;
-  the bit-planar layout (``encode_planar``/``decode_planar``) runs the
-  packed plane matmul ``gf8.planar_matmul``, kernel B1 on the card.
+- ``MatrixCodec`` (ISA, jerasure reed_sol_*, SHEC, and LRC's layers):
+  bytewise GF(2^w) codes, w in {8, 16, 32}.  The byte layout
+  (``encode_chunks``/``encode_batch`` and their decodes) runs
+  ``gf8.bitmatrix_matmul`` (w=8) or ``gfw.bitmatrix_matmul_w`` (w=16/32),
+  a float32 ``torch.matmul`` on unpacked bits; the bit-planar layout
+  (``encode_planar``/``decode_planar``) runs the packed plane matmul
+  ``gf8.planar_matmul`` on ``(r*w, k*w)`` bit-matrices, kernel B1 on the
+  card, for every w.
 - ``BitmatrixCodec`` (jerasure cauchy_* and the liberation family):
   packet-interleaved codes defined by an (m*w, k*w) 0/1 matrix.  The byte
   layout stays on ``gf8.bitmatrix_matmul`` with the matrix expanded over
   the 8 byte lanes; the packet-planar layout (``encode_planar``/
   ``decode_planar``) runs ``_planar_rows_matmul``, kernel B2 on the card.
 
-The GF(2^16)/GF(2^32) fields have their host half here (coding, generator
-and decode matrices); their byte-layout device paths arrive with the gfw
-slice and raise ``NotImplementedError`` until then.
+The GF(2^16)/GF(2^32) fields use the scalar ``gfw`` field for their
+coding, generator and decode matrices (k x m words, host).
 """
 
 from __future__ import annotations
@@ -116,6 +118,7 @@ class _DeviceMatrixEngine:
         self.k = k
         self.m = m
         self.w = w
+        self.word_bytes = w // 8
         self.device = resolve_device(device)
         if w == 8:
             self.coding = np.asarray(coding).astype(np.uint8)
@@ -130,26 +133,22 @@ class _DeviceMatrixEngine:
     def _to_dev(self, data) -> torch.Tensor:
         return _to_device(data, self.device)
 
-    def _check_byte_field(self) -> None:
-        if self.w != 8:
-            raise NotImplementedError(
-                f"w={self.w}: the byte layout of the GF(2^16)/GF(2^32) "
-                "fields arrives with the gfw slice of the port")
-
     def _apply(self, bitmat, data: np.ndarray) -> np.ndarray:
-        self._check_byte_field()
         _record_kernel("ec_matmul", data.size)
-        return gf8.bitmatrix_matmul(bitmat, self._to_dev(data)).cpu().numpy()
+        data = self._to_dev(data)
+        if self.w == 8:
+            out = gf8.bitmatrix_matmul(bitmat, data)
+        else:
+            out = gfw.bitmatrix_matmul_w(bitmat, data, self.word_bytes)
+        return out.cpu().numpy()
 
     def _apply_batch(self, bitmat, data) -> torch.Tensor:
         """(B, k, S) -> (B, r, S) on the device."""
-        self._check_byte_field()
         data = self._to_dev(data)
         _record_kernel("ec_matmul", data.numel())
-        b, k, s = data.shape
-        cols = data.permute(1, 0, 2).reshape(k, b * s)
-        out = gf8.bitmatrix_matmul(bitmat, cols)
-        return out.reshape(out.shape[0], b, s).permute(1, 0, 2).contiguous()
+        if self.w == 8:
+            return gf8.encode_batch(bitmat, data)
+        return gfw.encode_batch_w(bitmat, data, self.word_bytes)
 
     def encode_parity(self, data: np.ndarray) -> np.ndarray:
         """(k, S) -> (m, S)."""

@@ -7,11 +7,9 @@ per-technique alignment and chunk-size rules (ErasureCodeJerasure.cc:74-97),
 Vandermonde/RAID-6/Cauchy matrix generation (:199,245,301) and the
 liberation-family bit-matrices (:437-496).
 
-- ``reed_sol_van``, ``reed_sol_r6_op``: bytewise matrix codes
-  (``MatrixCodec``: bitpack planes and kernel B1 on the card).  Their
-  coding matrices are built for w in {8, 16, 32}; only w=8 encodes and
-  decodes in this slice, w=16/32 raise ``NotImplementedError`` naming the
-  gfw slice at the first byte or plane operation.
+- ``reed_sol_van``, ``reed_sol_r6_op``: bytewise matrix codes over
+  GF(2^w), w in {8, 16, 32} (``MatrixCodec``: bitpack planes and kernel B1
+  on the card at every w).
 - ``cauchy_orig``, ``cauchy_good``: packet-interleaved bit-matrix codes
   (``BitmatrixCodec``: packet planes and kernel B2 on the card), w in
   {8, 16, 32}.

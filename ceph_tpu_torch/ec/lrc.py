@@ -1,0 +1,578 @@
+"""LRC: layered locally-repairable codes.
+
+Counterpart of ``ceph_tpu/ec/lrc.py``, a behavioral mirror of reference
+src/erasure-code/lrc/ErasureCodeLrc.{h,cc}: a stack of layers, each a
+chunk-subset delegation to another EC plugin (struct Layer,
+ErasureCodeLrc.h:51-61), a profile either explicit mapping+layers JSON or
+generated from (k, m, l) (parse_kml, ErasureCodeLrc.cc:295),
+locality-aware minimum_to_decode (ErasureCodeLrc.cc:572) so a single
+erasure reads only its local group, and multi-step CRUSH rule steps
+(rule_steps, ErasureCodeLrc.h:66-75).
+
+Every layer is a codec of the registry on the LRC codec's device.
+``encode_chunks``/``decode_chunks`` keep the literal layer walk; the batch
+and planar paths compose the walk into one matrix (encode: the flattened
+generator; decode: the pruned recovery matrix of one erasure pattern), so
+a planar encode or decode is one kernel B1 call on ``(r*8, s*8)``
+bit-matrices.  ``create_rule`` needs CRUSH's types and waits for the CRUSH
+slice of the port.
+"""
+
+from __future__ import annotations
+
+import errno
+import json
+from dataclasses import dataclass, field
+from typing import Dict, List, Mapping, Set
+
+import numpy as np
+import torch
+
+from ceph_tpu_torch.ec.base import ErasureCode
+from ceph_tpu_torch.ec.codec import _to_device, resolve_device
+from ceph_tpu_torch.ec.interface import (ECError, ErasureCodeInterface,
+                                         ErasureCodeProfile)
+from ceph_tpu_torch.ops import gf8
+
+DEFAULT_KML = "-1"
+
+
+@dataclass
+class Layer:
+    """One LRC layer (reference ErasureCodeLrc.h:51-61)."""
+
+    chunks_map: str
+    profile: ErasureCodeProfile = field(default_factory=dict)
+    erasure_code: ErasureCodeInterface = None
+    data: List[int] = field(default_factory=list)
+    coding: List[int] = field(default_factory=list)
+    chunks: List[int] = field(default_factory=list)
+    chunks_as_set: Set[int] = field(default_factory=set)
+
+
+@dataclass
+class Step:
+    """One generated CRUSH rule step (reference ErasureCodeLrc.h:66-75)."""
+
+    op: str
+    type: str
+    n: int
+
+
+class ErasureCodeLrc(ErasureCode):
+    def __init__(self, device=None):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.layers: List[Layer] = []
+        self.chunk_count = 0
+        self.data_chunk_count = 0
+        self.rule_steps: List[Step] = [Step("chooseleaf", "host", 0)]
+        # the flattened encode bit-matrix on the device, and the composed
+        # (bit-matrix, source ids) per (erasures, want) pattern
+        self._enc_bitmat = None
+        self._dec_plans: Dict = {}
+
+    # -- profile parsing ----------------------------------------------------
+
+    def _parse_kml(self, profile: ErasureCodeProfile) -> None:
+        """Generate mapping/layers/rule-steps from (k, m, l)
+        (reference parse_kml, ErasureCodeLrc.cc:295)."""
+        k = self.to_int("k", profile, DEFAULT_KML)
+        m = self.to_int("m", profile, DEFAULT_KML)
+        l = self.to_int("l", profile, DEFAULT_KML)
+        if k == -1 and m == -1 and l == -1:
+            return
+        if k == -1 or m == -1 or l == -1:
+            raise ECError(errno.EINVAL,
+                          "all of k, m, l must be set or none of them")
+        for generated in ("mapping", "layers", "crush-steps"):
+            if generated in profile and profile[generated]:
+                raise ECError(
+                    errno.EINVAL,
+                    f"the {generated} parameter cannot be set when k, m, l "
+                    "are set")
+        if (k + m) % l:
+            raise ECError(errno.EINVAL, "k + m must be a multiple of l")
+        local_group_count = (k + m) // l
+        if k % local_group_count:
+            raise ECError(errno.EINVAL, "k must be a multiple of (k + m) / l")
+        if m % local_group_count:
+            raise ECError(errno.EINVAL, "m must be a multiple of (k + m) / l")
+
+        kg = k // local_group_count
+        mg = m // local_group_count
+        profile["mapping"] = ("D" * kg + "_" * mg + "_") * local_group_count
+        # the global layer, then one local layer per group
+        layers = [[("D" * kg + "c" * mg + "_") * local_group_count, ""]]
+        for i in range(local_group_count):
+            desc = "".join("D" * l + "c" if i == j else "_" * (l + 1)
+                           for j in range(local_group_count))
+            layers.append([desc, ""])
+        profile["layers"] = json.dumps(layers)
+
+        rule_locality = profile.get("crush-locality", "")
+        rule_failure_domain = profile.get("crush-failure-domain", "host")
+        if rule_locality:
+            self.rule_steps = [
+                Step("choose", rule_locality, local_group_count),
+                Step("chooseleaf", rule_failure_domain, l + 1),
+            ]
+        elif rule_failure_domain:
+            self.rule_steps = [Step("chooseleaf", rule_failure_domain, 0)]
+
+    def _parse_rule(self, profile: ErasureCodeProfile) -> None:
+        """crush-steps JSON override (reference parse_rule)."""
+        if not profile.get("crush-steps"):
+            return
+        try:
+            description = json.loads(profile["crush-steps"])
+        except json.JSONDecodeError as e:
+            raise ECError(errno.EINVAL, f"failed to parse crush-steps: {e}")
+        if not isinstance(description, list):
+            raise ECError(errno.EINVAL, "crush-steps must be a JSON array")
+        self.rule_steps = []
+        for entry in description:
+            if not isinstance(entry, list):
+                raise ECError(errno.EINVAL,
+                              "each crush-steps element must be a JSON array")
+            op, type_, n = "", "", 0
+            for pos, v in enumerate(entry):
+                if pos in (0, 1) and not isinstance(v, str):
+                    raise ECError(
+                        errno.EINVAL,
+                        f"crush-steps element {pos} must be a string")
+                if pos == 2 and not isinstance(v, int):
+                    raise ECError(errno.EINVAL,
+                                  "crush-steps element 2 must be an int")
+                if pos == 0:
+                    op = v
+                elif pos == 1:
+                    type_ = v
+                elif pos == 2:
+                    n = v
+            self.rule_steps.append(Step(op, type_, n))
+
+    def _layers_parse(self, profile: ErasureCodeProfile) -> None:
+        """layers JSON -> Layer list (reference layers_parse,
+        ErasureCodeLrc.cc:145)."""
+        if not profile.get("layers"):
+            raise ECError(errno.EINVAL, "could not find 'layers' in profile")
+        try:
+            description = json.loads(profile["layers"])
+        except json.JSONDecodeError as e:
+            raise ECError(errno.EINVAL, f"failed to parse layers: {e}")
+        if not isinstance(description, list):
+            raise ECError(errno.EINVAL, "layers must be a JSON array")
+        self.layers = []
+        for position, entry in enumerate(description):
+            if not isinstance(entry, list):
+                raise ECError(
+                    errno.EINVAL,
+                    f"layers element at position {position} must be a JSON "
+                    "array")
+            if not entry or not isinstance(entry[0], str):
+                raise ECError(
+                    errno.EINVAL,
+                    f"the first element of layers entry {position} must be "
+                    "a string")
+            layer = Layer(chunks_map=entry[0])
+            if len(entry) > 1:
+                config = entry[1]
+                if isinstance(config, str):
+                    if config:
+                        try:
+                            layer.profile = {
+                                str(a): str(b)
+                                for a, b in json.loads(config).items()}
+                        except (json.JSONDecodeError, AttributeError) as e:
+                            raise ECError(errno.EINVAL,
+                                          f"bad layer config {config!r}: {e}")
+                elif isinstance(config, dict):
+                    layer.profile = {str(a): str(b) for a, b in config.items()}
+                else:
+                    raise ECError(
+                        errno.EINVAL,
+                        f"the second element of layers entry {position} "
+                        "must be a string or object")
+            # trailing elements ignored, like the reference
+            self.layers.append(layer)
+
+    def _layers_init(self) -> None:
+        """Resolve chunk positions and instantiate each layer's codec on
+        this codec's device (reference layers_init, ErasureCodeLrc.cc:215)."""
+        from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+
+        registry = ErasureCodePluginRegistry.instance()
+        for layer in self.layers:
+            layer.data = [i for i, c in enumerate(layer.chunks_map)
+                          if c == "D"]
+            layer.coding = [i for i, c in enumerate(layer.chunks_map)
+                            if c == "c"]
+            layer.chunks = layer.data + layer.coding
+            layer.chunks_as_set = set(layer.chunks)
+            layer.profile.setdefault("k", str(len(layer.data)))
+            layer.profile.setdefault("m", str(len(layer.coding)))
+            layer.profile.setdefault("plugin", "jerasure")
+            layer.profile.setdefault("technique", "reed_sol_van")
+            layer.erasure_code = registry.factory(
+                layer.profile["plugin"], layer.profile, device=self.device)
+
+    def _layers_sanity_checks(self) -> None:
+        if len(self.layers) < 1:
+            raise ECError(errno.EINVAL, "layers must have at least one entry")
+        for position, layer in enumerate(self.layers):
+            if len(layer.chunks_map) != self.chunk_count:
+                raise ECError(
+                    errno.EINVAL,
+                    f"layer {position} chunks_map {layer.chunks_map!r} must "
+                    f"be {self.chunk_count} characters long")
+
+    def init(self, profile: ErasureCodeProfile) -> None:
+        # ordering mirrors reference ErasureCodeLrc::init (:496-553)
+        self._parse_kml(profile)
+        self.rule_root = self.to_string("crush-root", profile, "default")
+        self.rule_failure_domain = self.to_string(
+            "crush-failure-domain", profile, "host")
+        self.rule_device_class = self.to_string("crush-device-class",
+                                                profile, "")
+        self._parse_rule(profile)
+        self._layers_parse(profile)
+        self._layers_init()
+        if not profile.get("mapping"):
+            raise ECError(errno.EINVAL, "the 'mapping' profile is missing")
+        mapping = profile["mapping"]
+        self.data_chunk_count = mapping.count("D")
+        self.chunk_count = len(mapping)
+        self._layers_sanity_checks()
+        self.to_mapping(profile)
+        # kml-generated parameters are internal; do not expose them
+        # (reference :545-550)
+        if profile.get("l") and profile["l"] != DEFAULT_KML:
+            profile.pop("mapping", None)
+            profile.pop("layers", None)
+        self._profile = profile
+
+    # -- geometry -----------------------------------------------------------
+
+    def get_chunk_count(self) -> int:
+        return self.chunk_count
+
+    def get_data_chunk_count(self) -> int:
+        return self.data_chunk_count
+
+    def get_chunk_size(self, object_size: int) -> int:
+        return self.layers[0].erasure_code.get_chunk_size(object_size)
+
+    # -- minimum_to_decode (the locality win) -------------------------------
+
+    def minimum_to_decode(self, want_to_read: Set[int],
+                          available_chunks: Set[int]) -> Set[int]:
+        """Reference ErasureCodeLrc::minimum_to_decode (:572): recover
+        erasures with as few chunks as possible, preferring the lowest
+        (most local) layers; on a single local erasure the read set is the
+        local group, not k chunks."""
+        erasures_total = set()
+        erasures_not_recovered = set()
+        erasures_want = set()
+        for i in range(self.get_chunk_count()):
+            if i not in available_chunks:
+                erasures_total.add(i)
+                erasures_not_recovered.add(i)
+                if i in want_to_read:
+                    erasures_want.add(i)
+
+        # Case 1: nothing wanted is missing
+        if not erasures_want:
+            return set(want_to_read)
+
+        # Case 2: recover wanted erasures bottom-up (local layers last in
+        # the list, reverse iteration visits them first)
+        minimum: Set[int] = set()
+        for layer in reversed(self.layers):
+            layer_want = want_to_read & layer.chunks_as_set
+            if not layer_want:
+                continue
+            layer_erasures = layer_want & erasures_want
+            if not layer_erasures:
+                minimum |= layer_want
+                continue
+            erasures = layer.chunks_as_set & erasures_not_recovered
+            if len(erasures) > layer.erasure_code.get_coding_chunk_count():
+                # too many erasures for this layer: hope an upper layer helps
+                continue
+            layer_minimum = layer.chunks_as_set - erasures_not_recovered
+            for j in erasures:
+                erasures_not_recovered.discard(j)
+                erasures_want.discard(j)
+            minimum |= layer_minimum
+        if not erasures_want:
+            minimum |= want_to_read
+            minimum -= erasures_total
+            return minimum
+
+        # Case 3: recover everything recoverable, layer by layer, and read
+        # all available chunks
+        erasures_total = {i for i in range(self.get_chunk_count())
+                          if i not in available_chunks}
+        for layer in reversed(self.layers):
+            layer_erasures = layer.chunks_as_set & erasures_total
+            if not layer_erasures:
+                continue
+            if len(layer_erasures) <= \
+                    layer.erasure_code.get_coding_chunk_count():
+                erasures_total -= layer_erasures
+        if not erasures_total:
+            return set(available_chunks)
+
+        raise ECError(errno.EIO,
+                      f"not enough chunks in {sorted(available_chunks)} "
+                      f"to read {sorted(want_to_read)}")
+
+    # -- encode / decode: the literal layer walk ----------------------------
+
+    def encode_chunks(self, chunks: Dict[int, np.ndarray]) -> None:
+        """Apply every layer in order: the global layer fills the global
+        parities, then each local layer its local parity (reference
+        encode_chunks, ErasureCodeLrc.cc:744 with want = all chunks)."""
+        for layer in self.layers:
+            layer_chunks = {j: chunks[c] for j, c in enumerate(layer.chunks)}
+            layer.erasure_code.encode_chunks(layer_chunks)
+
+    def decode_chunks(
+        self,
+        want_to_read: Set[int],
+        chunks: Mapping[int, np.ndarray],
+        decoded: Dict[int, np.ndarray],
+    ) -> None:
+        """Reference decode_chunks (ErasureCodeLrc.cc:782): walk layers
+        bottom-up; each successful layer decode improves ``decoded`` and
+        shrinks the erasure set for the layers above."""
+        erasures = {i for i in range(self.get_chunk_count())
+                    if i not in chunks}
+        want_to_read_erasures = erasures & want_to_read
+        for layer in reversed(self.layers):
+            layer_erasures = layer.chunks_as_set & erasures
+            if len(layer_erasures) > \
+                    layer.erasure_code.get_coding_chunk_count():
+                continue  # too many erasures for this layer
+            if not layer_erasures:
+                continue  # all of this layer's chunks already available
+            layer_want: Set[int] = set()
+            layer_chunks: Dict[int, np.ndarray] = {}
+            layer_decoded: Dict[int, np.ndarray] = {}
+            for j, c in enumerate(layer.chunks):
+                # pick from `decoded` (not `chunks`) to reuse chunks
+                # recovered by previous layers
+                if c not in erasures:
+                    layer_chunks[j] = decoded[c]
+                if c in want_to_read:
+                    layer_want.add(j)
+                layer_decoded[j] = decoded[c]
+            layer.erasure_code.decode_chunks(
+                layer_want, layer_chunks, layer_decoded)
+            for j, c in enumerate(layer.chunks):
+                decoded[c][...] = layer_decoded[j]
+                erasures.discard(c)
+            want_to_read_erasures = erasures & want_to_read
+            if not want_to_read_erasures:
+                break
+        if want_to_read_erasures:
+            raise ECError(errno.EIO,
+                          f"unable to read {sorted(want_to_read_erasures)}")
+
+    # -- batched device paths -----------------------------------------------
+    #
+    # The stripe layer talks in LOGICAL chunk ids: data chunks 0..k-1 then
+    # coding chunks k..n-1, the order chunk_index() maps to positions.
+    # Layers think in POSITIONS (indices into the mapping string), so the
+    # batch paths convert at the boundary.
+
+    def _positions(self):
+        data_pos = self.chunk_mapping[: self.data_chunk_count]
+        coding_pos = self.chunk_mapping[self.data_chunk_count:]
+        return data_pos, coding_pos
+
+    def _flat_coding_matrix(self) -> np.ndarray:
+        """Compose the layer walk into ONE (m_total, k) GF(2^8) matrix over
+        the logical data chunks.
+
+        Every LRC parity, global or local, is a linear function of the
+        data (local layers that read global parities compose through
+        them), so the whole layered encode is one matmul.
+        ``encode_chunks`` keeps the literal layer walk (the reference
+        semantics the goldens pin); this matrix is algebraically identical
+        by construction."""
+        k = self.data_chunk_count
+        data_pos, coding_pos = self._positions()
+        expr = {c: np.zeros(k, dtype=np.uint8)
+                for c in range(self.chunk_count)}
+        for i, c in enumerate(data_pos):
+            expr[c][i] = 1
+        for layer in self.layers:
+            lm = layer.erasure_code.engine.coding  # (lm, lk) bytes
+            for r, cout in enumerate(layer.coding):
+                acc = np.zeros(k, dtype=np.uint8)
+                for j, cin in enumerate(layer.data):
+                    coef = int(lm[r, j])
+                    if coef:
+                        acc ^= gf8.gf_mul(coef, expr[cin])
+                expr[cout] = acc
+        return np.stack([expr[c] for c in coding_pos])
+
+    def _flat_encode_bitmat(self) -> torch.Tensor:
+        if self._enc_bitmat is None:
+            self._enc_bitmat = torch.from_numpy(gf8.expand_bitmatrix(
+                self._flat_coding_matrix())).to(self.device)
+        return self._enc_bitmat
+
+    def encode_batch(self, data) -> torch.Tensor:
+        """(B, k, S) logical data -> (B, m, S) coding chunks on the device,
+        as ONE flattened-generator matmul (see _flat_coding_matrix)."""
+        return gf8.encode_batch(self._flat_encode_bitmat(),
+                                _to_device(data, self.device))
+
+    def _decode_plan_for(self, erasures, want):
+        key = (tuple(erasures), tuple(want))
+        plan = self._dec_plans.get(key)
+        if plan is None:
+            plan = self._dec_plans[key] = self._build_flat_decode(key)
+        return plan
+
+    def decode_batch(self, erasures, chunks, want=None) -> torch.Tensor:
+        """Batched single-pattern reconstruction, the bottom-up layer walk
+        of decode_chunks composed into one matrix.  ``chunks``: (B, n, S) in
+        logical order with zeros at erased ids; ``erasures`` = every
+        unavailable logical id; ``want`` = subset to return (default all).
+        Returns (B, len(want), S); plans are cached per pattern like the
+        reference's decode tables."""
+        if want is None:
+            want = tuple(erasures)
+        bitmat, src_ids = self._decode_plan_for(erasures, want)
+        return gf8.encode_batch(
+            bitmat, _to_device(chunks, self.device)[:, list(src_ids), :])
+
+    def _build_flat_decode(self, key):
+        """Compose the bottom-up layer walk for one erasure pattern into
+        ONE recovery matrix over the AVAILABLE logical chunks (the walk is
+        linear, so its per-layer steps collapse to one gather+matmul), on
+        the host, then prune to the chunks the recovery uses.  Returns
+        (bit-matrix on the device, source ids)."""
+        erasures, want = key
+        steps, out_pos = self._decode_plan(erasures, want)
+        logical_to_pos = list(self.chunk_mapping)
+        avail_logical = tuple(e for e in range(self.chunk_count)
+                              if e not in erasures)
+        basis = {logical_to_pos[e]: i for i, e in enumerate(avail_logical)}
+        expr: dict = {}
+        for p, i in basis.items():
+            row = np.zeros(len(avail_logical), dtype=np.uint8)
+            row[i] = 1
+            expr[p] = row
+        for layer, local_erasures, _layer_erased in steps:
+            src = self._layer_src(layer, local_erasures)
+            rmat = layer.erasure_code.engine.decode_matrix(
+                src, local_erasures)              # (out, src) bytes
+            for r, out_local in enumerate(local_erasures):
+                acc = np.zeros(len(avail_logical), dtype=np.uint8)
+                for j, s_local in enumerate(src):
+                    coef = int(rmat[r, j])
+                    if coef:
+                        acc ^= gf8.gf_mul(coef, expr[layer.chunks[s_local]])
+                expr[layer.chunks[out_local]] = acc
+        flat = np.stack([expr[p] for p in out_pos])
+        # locality: drop all-zero columns so the gather reads ONLY the
+        # chunks the composed recovery uses — a single local erasure pulls
+        # its l+1 group, not all n-1 survivors (the reference's
+        # minimum_to_decode read set, ErasureCodeLrc.cc:572).  Coefficients
+        # are untouched, so the result stays bit-identical.
+        used = np.flatnonzero(flat.any(axis=0))
+        if used.size == 0:
+            used = np.arange(min(1, len(avail_logical)))
+        flat = np.ascontiguousarray(flat[:, used])
+        src_ids = tuple(avail_logical[int(i)] for i in used)
+        bitmat = torch.from_numpy(gf8.expand_bitmatrix(flat)).to(self.device)
+        return bitmat, src_ids
+
+    # -- bit-planar device layout -------------------------------------------
+    #
+    # The layer walk is flattened to single matrices (encode: the composed
+    # generator; decode: the composed pruned recovery), so the planar path
+    # is one matmul on packed planes, as for the plain matrix codes.  LRC
+    # layers are w=8 matrix codes, so w is always 8 here.
+
+    def planar_supported(self, chunk_size: int) -> bool:
+        from ceph_tpu_torch.ec.planar import PlanarBatch
+
+        return PlanarBatch.supported(chunk_size, 8)
+
+    def to_planar(self, batch):
+        from ceph_tpu_torch.ec.planar import PlanarBatch
+
+        return PlanarBatch.from_batch(batch, w=8, device=self.device)
+
+    def encode_planar(self, pb):
+        planes = gf8.planar_matmul(self._flat_encode_bitmat(), pb.planes)
+        return pb.with_planes(planes,
+                              self.chunk_count - self.data_chunk_count)
+
+    def decode_planar(self, erasures, pb, want=None):
+        from ceph_tpu_torch.ec.planar import _select_chunk_rows
+
+        if want is None:
+            want = tuple(erasures)
+        bitmat, src_ids = self._decode_plan_for(erasures, want)
+        src_planes = _select_chunk_rows(pb.planes, 8, src_ids)
+        return pb.with_planes(gf8.planar_matmul(bitmat, src_planes),
+                              len(want))
+
+    @staticmethod
+    def _layer_src(layer, local_erasures):
+        ln = len(layer.chunks)
+        lk = layer.erasure_code.get_data_chunk_count()
+        avail = tuple(i for i in range(ln) if i not in local_erasures)
+        return avail[:lk]
+
+    def _decode_plan(self, erasures, want):
+        """Host-side routing for one erasure pattern: which layers run,
+        with which local erasures."""
+        logical_to_pos = list(self.chunk_mapping)
+        erased_pos = {logical_to_pos[e] for e in erasures}
+        want_pos = {logical_to_pos[e] for e in want}
+        steps = []
+        for layer in reversed(self.layers):
+            layer_erased = [c for c in layer.chunks if c in erased_pos]
+            if not layer_erased:
+                continue
+            if len(layer_erased) > \
+                    layer.erasure_code.get_coding_chunk_count():
+                continue
+            local_ids = {c: j for j, c in enumerate(layer.chunks)}
+            steps.append(
+                (layer, tuple(local_ids[c] for c in layer_erased),
+                 tuple(layer_erased)))
+            erased_pos -= set(layer_erased)
+            if not erased_pos & want_pos:
+                break
+        if erased_pos & want_pos:
+            raise ECError(
+                errno.EIO,
+                "unable to reconstruct positions "
+                f"{sorted(erased_pos & want_pos)}")
+        out_pos = tuple(logical_to_pos[e] for e in want)
+        return steps, out_pos
+
+    # -- CRUSH rule generation ----------------------------------------------
+
+    def create_rule(self, name: str, cmap) -> int:
+        """The reference generates a multi-step indep rule from
+        ``rule_steps``; that needs CRUSH's rule types, which the port
+        brings with its CRUSH slice."""
+        raise NotImplementedError(
+            "ErasureCodeLrc.create_rule needs CRUSH's rule types, which "
+            "arrive with the CRUSH slice of the port")
+
+
+def make_lrc(profile: ErasureCodeProfile, device=None):
+    codec = ErasureCodeLrc(device=device)
+    codec.init(profile)
+    return codec

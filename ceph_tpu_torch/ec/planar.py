@@ -3,12 +3,12 @@
 Counterpart of ``ceph_tpu/ec/planar.py``.  Two planar flavors, matching
 the two codec families:
 
-- ``bitpack`` (the matrix codecs: ISA, jerasure reed_sol_*): a stripe
-  batch ``(B, c, S)`` lives on the device as packed planes
-  ``(c*8, B*S/8)`` uint8 with chunk-major plane rows (row ``j*8 + t`` is
-  bit-plane t of chunk j), built by ``gf8.bytes_to_planar`` over the
-  shard-major ``(c, B*S)`` view.  Only w=8 is ported; the wide-field
-  planes arrive with the gfw slice.
+- ``bitpack`` (the matrix codecs: ISA, jerasure reed_sol_*, SHEC, LRC): a
+  stripe batch ``(B, c, S)`` lives on the device as packed planes
+  ``(c*w, B*S/w)`` uint8 with chunk-major plane rows (row ``j*w + t`` is
+  bit-plane t of chunk j), built by ``gf8.bytes_to_planar`` (w=8) or
+  ``gfw.bytes_to_planar_w`` (w=16/32) over the shard-major ``(c, B*S)``
+  view.
 - ``packet`` (the packet codecs: jerasure cauchy_*, liberation family):
   those chunks are already bit-interleaved at packet granularity
   (jerasure's w packets of p bytes per super-block are packed
@@ -27,19 +27,25 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ceph_tpu_torch.ops import gf8
+from ceph_tpu_torch.ops import gf8, gfw
 from ceph_tpu_torch.ops.profiling import record_planar_convert
 
 
-def _batch_to_planes(batch: torch.Tensor) -> torch.Tensor:
-    """(B, c, S) bytes -> (c*8, B*S/8) packed planes (shard-major cols)."""
+def _batch_to_planes(batch: torch.Tensor, w: int) -> torch.Tensor:
+    """(B, c, S) bytes -> (c*w, B*S/w) packed planes (shard-major cols)."""
     b, c, s = batch.shape
-    return gf8.bytes_to_planar(batch.permute(1, 0, 2).reshape(c, b * s))
+    rows = batch.permute(1, 0, 2).reshape(c, b * s)
+    if w == 8:
+        return gf8.bytes_to_planar(rows)
+    return gfw.bytes_to_planar_w(rows, w)
 
 
-def _planes_to_batch(planes: torch.Tensor, b: int, c: int,
-                     s: int) -> torch.Tensor:
-    rows = gf8.planar_to_bytes(planes)
+def _planes_to_batch(planes: torch.Tensor, b: int, c: int, s: int,
+                     w: int) -> torch.Tensor:
+    if w == 8:
+        rows = gf8.planar_to_bytes(planes)
+    else:
+        rows = gfw.planar_to_bytes_w(planes, w)
     return rows.reshape(c, b, s).permute(1, 0, 2).contiguous()
 
 
@@ -110,9 +116,6 @@ class PlanarBatch:
                    packetsize: int = 0) -> "PlanarBatch":
         """(B, c, S) byte batch (numpy, or a tensor) -> planes on
         ``device`` (default: where the tensor lies)."""
-        if layout == "bitpack" and w != 8:
-            raise NotImplementedError(
-                f"w={w}: wide-field planes arrive with the gfw slice")
         if not isinstance(batch, torch.Tensor):
             batch = torch.from_numpy(np.ascontiguousarray(batch,
                                                           dtype=np.uint8))
@@ -122,7 +125,7 @@ class PlanarBatch:
         if layout == "packet":
             planes = _batch_to_planes_packet(batch, w, packetsize)
         else:
-            planes = _batch_to_planes(batch)
+            planes = _batch_to_planes(batch, w)
         record_planar_convert("to_planar", b * c * s)
         # the byte view is not kept: holding it beside the planes would
         # double the batch's device footprint; to_batch re-derives it
@@ -149,7 +152,7 @@ class PlanarBatch:
             else:
                 self._batch = _planes_to_batch(
                     self.planes, self.nstripes, self.nchunks,
-                    self.chunk_size)
+                    self.chunk_size, self.w)
             record_planar_convert(
                 "to_bytes", self.nstripes * self.nchunks * self.chunk_size)
         return self._batch

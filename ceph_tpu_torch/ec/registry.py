@@ -2,10 +2,10 @@
 
 Counterpart of ``ceph_tpu/ec/registry.py``, mirroring reference
 src/erasure-code/ErasureCodePlugin.cc:92-202: a singleton registry
-mapping plugin names to factories.  The port registers ``isa`` and
-``jerasure`` (the default plugin, as in the reference); asking for a
-plugin that a later slice brings raises ``ECError(ENOENT)`` naming that
-slice.
+mapping plugin names to factories.  The port registers the four plugins
+of the reference: ``jerasure`` (the default plugin, as in the reference),
+``isa``, ``lrc`` and ``shec``; every factory takes the ``device`` its codec
+(and an LRC codec's layers) runs on.
 """
 
 from __future__ import annotations
@@ -16,12 +16,6 @@ from typing import Callable, Dict
 
 from ceph_tpu_torch.ec.codec import resolve_device
 from ceph_tpu_torch.ec.interface import ECError, ErasureCodeInterface, ErasureCodeProfile
-
-# plugins of the reference package that later slices of the port bring
-_LATER = {
-    "lrc": "the LRC slice",
-    "shec": "the SHEC slice",
-}
 
 
 class ErasureCodePluginRegistry:
@@ -43,9 +37,13 @@ class ErasureCodePluginRegistry:
     def _register_builtins(self) -> None:
         from ceph_tpu_torch.ec.isa import make_isa
         from ceph_tpu_torch.ec.jerasure import make_jerasure
+        from ceph_tpu_torch.ec.lrc import make_lrc
+        from ceph_tpu_torch.ec.shec import make_shec
 
         self.add("isa", make_isa)
         self.add("jerasure", make_jerasure)
+        self.add("lrc", make_lrc)
+        self.add("shec", make_shec)
 
     def add(self, name: str, factory) -> None:
         with self._lock:
@@ -55,10 +53,6 @@ class ErasureCodePluginRegistry:
         with self._lock:
             if name in self._factories:
                 return self._factories[name]
-        if name in _LATER:
-            raise ECError(errno.ENOENT,
-                          f"plugin {name!r} is not ported yet: it arrives "
-                          f"with {_LATER[name]}")
         raise ECError(errno.ENOENT, f"no erasure-code plugin {name!r}")
 
     def factory(self, plugin: str, profile: ErasureCodeProfile,

@@ -1,6 +1,6 @@
 """EC stripe tessellation and the coalesced encode/decode of an OSD tick.
 
-Counterpart of ``ceph_tpu/ec/stripe.py:25-640,652-919``.
+Counterpart of ``ceph_tpu/ec/stripe.py``.
 ``StripeInfo`` mirrors ECUtil::stripe_info_t (reference
 src/osd/ECUtil.h:31-84): an EC object is a sequence of stripes, each
 stripe_width = k * stripe_unit logical bytes, cut into k data chunks of
@@ -17,8 +17,11 @@ Two families of entry points, as in the reference:
   stripe batch riding the codec's planar layout on the device (bitpack
   planes and kernel B1 for the matrix codecs, packet rows and kernel B2
   for the packet codecs);
-- planar at rest (``encode_planes_multi``/``decode_planes_multi``): shards
-  stored as packed bit-planes of a w=8 matrix code.
+- planar at rest (``encode_planes_multi``/``decode_planes_multi``/
+  ``reencode_planes_multi``): shards stored as packed bit-planes of a w=8
+  matrix code (ISA, jerasure reed_sol_*, SHEC).  Patterns without a
+  survivor-submatrix solution, which SHEC's non-MDS plans reach, relayout
+  to the byte entry points.
 
 Engine choice follows the codec's device: on the card the GF(2) matmuls
 launch the CUDA kernels, on the CPU they run their plain versions.  The
@@ -27,16 +30,10 @@ branches) has no counterpart: on a CPU JAX backend it does not check for
 ``packetsize`` and computes cauchy parity bytewise, which the port must
 not copy.  PyTorch runs eagerly, so the reference's power-of-two batch
 bucketing (a bound on XLA compiles) has no counterpart either.
-
-Not ported yet: ``reencode_planes_multi`` and ``merge_range`` (a later
-slice), and the relayout branch of ``decode_planes_multi`` for patterns
-without a survivor-submatrix solution, which only the non-MDS SHEC plans
-reach; it raises until the SHEC slice.
 """
 
 from __future__ import annotations
 
-import errno
 from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -44,7 +41,6 @@ import torch
 
 from ceph_tpu_torch.ec import planar_store as pstore
 from ceph_tpu_torch.ec.codec import _to_device
-from ceph_tpu_torch.ec.interface import ECError
 from ceph_tpu_torch.ops import gf8
 from ceph_tpu_torch.ops.crc32c import crc32c_planar_rows, crc32c_rows
 from ceph_tpu_torch.ops.profiling import record_planar_at_rest
@@ -480,6 +476,14 @@ def _parity_planes_for(codec, data_planes) -> torch.Tensor:
                              _to_device(data_planes, codec.device))
 
 
+def _select_shard_planes(full_planes: torch.Tensor,
+                         shards: Tuple[int, ...]) -> torch.Tensor:
+    """Row-select whole shards (8 plane rows each) from a chunk-major
+    plane matrix: a gather, no layout change."""
+    cols = full_planes.shape[1]
+    return full_planes.reshape(-1, 8, cols)[list(shards)].reshape(-1, cols)
+
+
 def encode_planes_multi(codec, sinfo: StripeInfo, datas, want_crcs=None):
     """Coalesced encode emitting AT-REST PLANES.
 
@@ -572,9 +576,10 @@ def decode_planes_multi(codec, sinfo: StripeInfo, reqs):
     its serialized blob).  Missing data shards are rebuilt in the plane
     domain, one planar matmul per erasure pattern for the whole tick; the
     only conversion is the final planes -> logical-bytes assemble.  A
-    pattern without a survivor-submatrix solution raises ``ECError``: the
-    reference's relayout to the byte machinery, which only the non-MDS
-    SHEC plans reach, arrives with the SHEC slice."""
+    pattern without a survivor-submatrix solution (SHEC's non-MDS plans)
+    relayouts its group's shards to bytes, counted on the ``relayout``
+    seam, and decodes them in one ``decode_stripes_multi`` call (the
+    reference calls it once per op; the bytes are the same)."""
     k = sinfo.k
     unit = sinfo.chunk_size
     n = codec.get_chunk_count()
@@ -613,10 +618,15 @@ def decode_planes_multi(codec, sinfo: StripeInfo, reqs):
             c0 += cw
         rec = _planes_rows_for(codec, src, want, src_planes)
         if rec is None:
-            raise ECError(
-                errno.ENOTSUP,
-                f"erasures {erasures}: no survivor-submatrix solution; the "
-                "byte relayout path arrives with the SHEC slice")
+            # no solution for the plane engine: relayout the group to the
+            # byte machinery, one coalesced decode (counted; never the
+            # steady state)
+            datas = decode_stripes_multi(
+                codec, sinfo, [(_relayout_to_bytes(arrs), logical_size)
+                               for _i, arrs, _ns, logical_size in items])
+            for (i, _a, _ns, _ls), data in zip(items, datas):
+                out[i] = data
+            continue
         rec = rec.cpu().numpy()
         c0 = 0
         for i, arrs, ns, logical_size in items:
@@ -628,3 +638,94 @@ def decode_planes_multi(codec, sinfo: StripeInfo, reqs):
             out[i] = _assemble_from_planes(data_planes, k, ns, unit,
                                            logical_size)
     return out
+
+
+def _relayout_to_bytes(arrs: Dict[int, np.ndarray]) -> Dict[int, np.ndarray]:
+    """At-rest plane matrices -> shard byte rows, booked on the
+    ``relayout`` seam."""
+    return {s: np.frombuffer(pstore.planes_to_shard(a, seam="relayout"),
+                             dtype=np.uint8)
+            for s, a in arrs.items()}
+
+
+def reencode_planes_multi(codec, sinfo: StripeInfo, reqs):
+    """Coalesced recovery rebuild in the plane domain: at-rest planes in,
+    at-rest planes out, no layout conversion (recovery neither ingests
+    client bytes nor egresses logical bytes).
+
+    ``reqs`` mirrors ``decode_planes_multi``; returns the per-op
+    (n, 8, shard_len/8) uint8 arrays, aligned with ``reqs``.  Each
+    (erasures, missing) group goes to the device once: missing data
+    chunks' plane rows rebuild through the recovery bit-matrix, parity
+    re-derives from the data plane rows (two kernel B1 calls), and
+    surviving shards pass through.  A pattern without a survivor-submatrix
+    solution relayouts its group through one ``reencode_stripes_multi``
+    call."""
+    k = sinfo.k
+    unit = sinfo.chunk_size
+    n = codec.get_chunk_count()
+    out: List = [None] * len(reqs)
+    groups: Dict[Tuple, List] = {}
+    for i, (shards, logical_size) in enumerate(reqs):
+        nstripes = sinfo.object_stripes(logical_size)
+        if nstripes == 0:
+            out[i] = np.zeros((n, 8, 0), dtype=np.uint8)
+            continue
+        if len(shards) < k:
+            raise ValueError(f"only {len(shards)} of {k} shards")
+        arrs = _normalize_planes(shards, nstripes * unit // 8)
+        erasures = tuple(s for s in range(n) if s not in arrs)
+        missing = tuple(s for s in range(k) if s not in arrs)
+        groups.setdefault((erasures, missing), []).append(
+            (i, arrs, nstripes, logical_size))
+    if not groups:
+        return out
+    KERNELS.inc("ec_coalesced_reencode_ticks")
+    KERNELS.inc("ec_coalesced_reencodes", sum(len(g) for g in groups.values()))
+    for (erasures, want), items in groups.items():
+        src = tuple(s for s in range(n) if s not in erasures)[:k]
+        total_cols = sum(ns for _i, _a, ns, _ls in items) * unit // 8
+        full = np.zeros((n * 8, total_cols), dtype=np.uint8)
+        c0 = 0
+        for _i, arrs, ns, _ls in items:
+            cw = ns * unit // 8
+            for s, a in arrs.items():
+                full[s * 8:s * 8 + 8, c0:c0 + cw] = a
+            c0 += cw
+        planes = _to_device(full, codec.device)
+        if want:
+            rec = _planes_rows_for(codec, src, want,
+                                   _select_shard_planes(planes, src))
+            if rec is None:
+                # relayout the group through one coalesced byte recovery
+                # rebuild
+                rebuilt = reencode_stripes_multi(
+                    codec, sinfo, [(_relayout_to_bytes(arrs), logical_size)
+                                   for _i, arrs, _ns, logical_size in items])
+                for (i, _a, _ns, _ls), rows in zip(items, rebuilt):
+                    out[i] = pstore.rows_to_planes(rows).reshape(
+                        n, 8, rows.shape[1] // 8)
+                    record_planar_at_rest("relayout", int(rows.size))
+                continue
+            for idx, e in enumerate(want):
+                planes[e * 8:e * 8 + 8] = rec[idx * 8:idx * 8 + 8]
+        planes[k * 8:] = _parity_planes_for(codec, planes[: k * 8])
+        full = planes.cpu().numpy()
+        c0 = 0
+        for i, _arrs, ns, _ls in items:
+            cw = ns * unit // 8
+            out[i] = np.ascontiguousarray(
+                full[:, c0:c0 + cw]).reshape(n, 8, cw)
+            c0 += cw
+    return out
+
+
+def merge_range(old: bytes, old_size: int, offset: int, data: bytes) -> bytes:
+    """Overlay ``data`` at ``offset`` onto ``old`` (zero-extending holes);
+    returns the new logical object bytes."""
+    new_size = max(old_size, offset + len(data))
+    buf = np.zeros(new_size, dtype=np.uint8)
+    if old:
+        buf[: len(old)] = np.frombuffer(old, dtype=np.uint8)
+    buf[offset: offset + len(data)] = np.frombuffer(data, dtype=np.uint8)
+    return buf.tobytes()

@@ -173,6 +173,14 @@ def bitmatrix_matmul(bitmat, data: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def encode_batch(bitmat, data: torch.Tensor) -> torch.Tensor:
+    """(B, k, S) -> (B, r, S) through ``bitmatrix_matmul``."""
+    b, k, s = data.shape
+    cols = data.permute(1, 0, 2).reshape(k, b * s)
+    out = bitmatrix_matmul(bitmat, cols)
+    return out.reshape(out.shape[0], b, s).permute(1, 0, 2).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Bit-planar layout: the device format for EC batches
 # ---------------------------------------------------------------------------

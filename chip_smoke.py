@@ -11,17 +11,21 @@ non-zero if any of them fails:
 
 1. kernels: B1 (``ops/gf8_cuda.planar_matmul``) and B2
    (``ops/gf8_bytes_cuda.bitmatrix_matmul``) against their plain versions
-   on the card, bit-exact: B1 at its ragged check shapes and the shapes
-   the ISA path gives it; B2 at the general ISA bit-matrices the TPU
-   kernel was validated with, the lane-expanded matrices of the cauchy
-   path (encode, decodes with 1, 2 and 4 erasures, the tick), the encode
-   matrices of liberation k=7 w=7, blaum_roth k=6 w=6, liber8tion k=8 and
-   cauchy_good w=16 (with a planar encode/decode of each against the host
-   reference), a misaligned column slice and N in {1, 7, 4097}; both at
-   the staged kernel's edges (N of one vector, a tile less or more one
-   vector, several tiles and a vector, fewer tiles than CTAs, k=128 with
-   r=64, k=49), each call checked to take the path it should (staged or
-   kept), and B2 with its host-packed table and with the on-card packing;
+   on the card, bit-exact: B1 at its ragged check shapes, the shapes the
+   ISA path gives it, and those of the SHEC k8m4c3 encode and decodes
+   (plans of 4 and 8 sources), the LRC k4m2l3 flattened encode and local
+   decode, and reed_sol_van k8m4 at w=16 ((64, 128), staged) and w=32
+   ((128, 256), whose lists overflow the staged kernel's table: kept);
+   B2 at the general ISA bit-matrices the TPU kernel was validated with,
+   the lane-expanded matrices of the cauchy path (encode, decodes with 1,
+   2 and 4 erasures, the tick), the encode matrices of liberation k=7
+   w=7, blaum_roth k=6 w=6, liber8tion k=8 and cauchy_good w=16 (with a
+   planar encode/decode of each against the host reference), a
+   misaligned column slice and N in {1, 7, 4097}; both at the staged
+   kernel's edges (N of one vector, a tile less or more one vector,
+   several tiles and a vector, fewer tiles than CTAs, k=128 with r=64,
+   k=49), each call checked to take the path it should (staged or kept),
+   and B2 with its host-packed table and with the on-card packing;
 2. ISA path (ISA k=8 m=4, bit-planar, kernel B1): 4096 stripes x 8 x
    512 B per step through ``to_planar`` -> ``encode_planar`` ->
    ``to_batch`` against the host GF reference, ``decode_planar`` for 1, 2
@@ -37,20 +41,39 @@ non-zero if any of them fails:
    ``reencode_stripes_multi``, and a small tick of Ceph's default profile
    (jerasure reed_sol_van k=2 m=1, kernel B1) through
    ``encode_planes_multi`` / ``decode_planes_multi``;
-4. one launch: a torch.profiler trace of one cauchy ``encode_planar``
+4. the erasure-code paths, all on kernel B1, each tick of the same op
+   sizes as the ISA tick and each result also held against the port's
+   plain version on the CPU:
+   - SHEC k=8 m=4 c=3, planes at rest at ``StripeInfo(8, 4096)``:
+     ``encode_planes_multi`` with CRCs, ``decode_planes_multi`` for lost
+     shards (3, 9) (plane engine) and (4,) and (0, 1) (relayout to the
+     byte decode), ``reencode_planes_multi`` for (4,) (relayout) and
+     (0, 5, 11) (plane engine);
+   - LRC k=4 m=2 l=3, bytes at rest at ``StripeInfo(4, 4096)``:
+     ``encode_stripes_multi``, ``decode_stripes_multi`` for one local
+     loss (which reads only its group) and a loss in each group,
+     ``reencode_stripes_multi``;
+   - jerasure reed_sol_van k=8 m=4 at w=16 and w=32: codec encode/decode
+     on the byte layout and the bitpack planes, and the byte-at-rest tick
+     at ``StripeInfo(8, 4096)``;
+5. one launch: a torch.profiler trace of one cauchy ``encode_planar``
    call shows exactly one device kernel, B2's staged kernel, and no
    ``pack_blocks_kernel``;
-5. timing: CUDA-event medians of B1 and B2 and of their plain versions at
+6. timing: CUDA-event medians of B1 and B2 and of their plain versions at
    their headline shapes (L2 flushed before each launch), each kernel's
    share of its bound, a same-traffic yardstick (``torch.bitwise_xor`` of
-   the two 8 MiB halves of a (64, 262144) uint8 tensor into 8 MiB), and
-   the encode step of each path split into its parts.
+   the two 8 MiB halves of a (64, 262144) uint8 tensor into 8 MiB), the
+   encode step of each path split into its parts, and B1 at the w=16,
+   w=32 and SHEC encode shapes with 16 MiB of input planes.
 
-Phases 2 and 3 are the main paths: kernel launch counts are set to 0 just
-before each and read just after, every kernel of the path must have
-launched, and every launch must have taken the staged path.  The last lines are the card's name and power limit, one JSON
-object describing each kernel, and ``{"ok": true, "device": {...}}``.
-Without a CUDA device it prints no result and exits non-zero.
+Phases 2, 3 and each path of phase 4 are main paths: kernel launch counts
+are set to 0 just before each and read just after, every kernel of the
+path must have launched, and every launch must have taken the staged
+path, except on the w=32 path, whose encode and 4-erasure decode take the
+kept one.  The last lines are the card's name and power limit, one JSON
+object describing each kernel (B1's launches summed over every main
+path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
+prints no result and exits non-zero.
 """
 
 from __future__ import annotations
@@ -85,6 +108,14 @@ TICK_SIZES = [64 << 10] * 256 + [0, 100, 40000, 200 << 10, (1 << 20) + 1]
 CAUCHY_PROFILE = {"plugin": "jerasure", "technique": "cauchy_good",
                   "k": "8", "m": "4", "packetsize": "2048"}
 HEADLINE_STRIPES = 128
+
+# the erasure-code slice's pools: the example profiles of Ceph's own
+# documentation (erasure-code-shec.rst, erasure-code-lrc.rst) and
+# reed_sol_van k=8 m=4 at the wide fields
+SHEC_PROFILE = {"plugin": "shec", "k": "8", "m": "4", "c": "3"}
+LRC_PROFILE = {"plugin": "lrc", "k": "4", "m": "2", "l": "3"}
+WIDE_PROFILE = {"plugin": "jerasure", "technique": "reed_sol_van", "k": "8",
+                "m": "4"}
 
 # the staged kernels' column tile (csrc/gf2_stream.cuh kTile) and the
 # widths at its edges: one 16-byte vector, a tile less or more a vector,
@@ -156,54 +187,37 @@ def took_path(module, before: int) -> str:
 
 
 def phase_kernel(codec, rng):
-    """B1 against its plain version on the card; returns max |diff|."""
+    """B1 against its plain version on the card at its check shapes and
+    the ISA path's; returns max |diff|."""
     import torch
 
     from ceph_tpu_torch.ec import matrices
-    from ceph_tpu_torch.ops import gf8, gf8_cuda
+    from ceph_tpu_torch.ops import gf8
 
     cases = []
     for (k, m, npk) in [(8, 4, 2048 * 3), (8, 4, 2048 * 2 + 100),
                         (4, 2, 5000), (10, 4, 2048), (2, 1, 2048)]:
         bm = gf8.expand_bitmatrix(matrices.isa_rs_matrix(k, m))
         cases.append((f"check k{k}m{m} npk={npk}",
-                      torch.from_numpy(bm).cuda(), k * 8, npk))
+                      torch.from_numpy(bm).cuda(), npk))
     eng = codec.engine
     headline_npk = 4096 * 512 // 8       # packed columns of one step
-    cases.append(("headline encode", eng._enc_bitmat, 64, headline_npk))
+    cases.append(("headline encode", eng._enc_bitmat, headline_npk))
     for er in [(2,), (0, 9), (1, 4, 8, 11)]:
         src = tuple(i for i in range(12) if i not in er)[:8]
         cases.append((f"headline decode {er}", eng.decode_bitmat(src, er),
-                      64, headline_npk))
+                      headline_npk))
     # the stripe tick's shape: its stripes' packed columns
-    tick_stripes = sum(-(-s // (8 * 4096)) for s in TICK_SIZES)
-    cases.append(("stripe tick encode", eng._enc_bitmat, 64,
-                  tick_stripes * 4096 // 8))
+    cases.append(("stripe tick encode", eng._enc_bitmat,
+                  tick_stripes(8, 4096) * 4096 // 8))
     # the staged kernel's edges, and k=128 with r=64 and k=49
     for npk in EDGE_WIDTHS:
-        cases.append((f"staged edge npk={npk}", eng._enc_bitmat, 64, npk))
+        cases.append((f"staged edge npk={npk}", eng._enc_bitmat, npk))
     for rw, kw in [(64, 128), (32, 49)]:
         bm = torch.from_numpy(
             rng.integers(0, 2, (rw, kw), dtype=np.uint8)).cuda()
-        cases.append((f"staged edge r={rw} k={kw}", bm, kw, 4 * TILE + 16))
-    worst = 0
-    for name, bm, kw, npk in cases:
-        planes = torch.from_numpy(
-            rng.integers(0, 256, (kw, npk), dtype=np.uint8)).cuda()
-        kept = gf8_cuda.kept_launches
-        got = gf8_cuda.planar_matmul(bm, planes)
-        path = took_path(gf8_cuda, kept)
-        want = gf8_cuda.planar_matmul_ref(bm, planes)
-        torch.cuda.synchronize()
-        diff = int((got.int() - want.int()).abs().max()) if npk else 0
-        worst = max(worst, diff)
-        if not torch.equal(got, want):
-            raise AssertionError(f"B1 differs from its plain version: {name}")
-        if path != ("staged" if npk % 16 == 0 else "kept"):
-            raise AssertionError(f"B1 took the {path} path: {name}")
-        log(f"kernel: B1 bit-exact, {name}, bitmat {tuple(bm.shape)}, "
-            f"{path} path")
-    return worst
+        cases.append((f"staged edge r={rw} k={kw}", bm, 4 * TILE + 16))
+    return max(check_b1(name, bm, npk, rng) for name, bm, npk in cases)
 
 
 def phase_codec(codec, rng):
@@ -397,9 +411,8 @@ def phase_kernel_b2(codec, rng):
         sel = torch.cat([rows[s * w:(s + 1) * w, :n] for s in src])
         worst = max(worst, check_b2(f"cauchy headline decode {er}", dec, sel,
                                     dec_blocks))
-    tick_stripes = sum(-(-s // (8 * 16384)) for s in TICK_SIZES)
     tick = torch.from_numpy(rng.integers(
-        0, 256, (k * w, tick_stripes * p), dtype=np.uint8)).cuda()
+        0, 256, (k * w, tick_stripes(8, 16384) * p), dtype=np.uint8)).cuda()
     worst = max(worst, check_b2("cauchy stripe tick encode", enc, tick,
                                 enc_blocks))
     # a column slice off any word boundary, and ragged widths
@@ -574,6 +587,258 @@ def phase_default_profile_tick():
         "round-trip with either data shard lost")
 
 
+def b1_expected_path(rw: int, kw: int, npk: int) -> str:
+    """The path B1's wrapper should pick for a fresh contiguous operand:
+    staged for 16-byte rows whose lists fit the table, kept otherwise."""
+    from ceph_tpu_torch.ops import gf8_cuda
+
+    fits = gf8_cuda.list_bytes(rw, kw) <= gf8_cuda.TABLE_BYTES
+    return "staged" if npk % 16 == 0 and fits else "kept"
+
+
+def check_b1(name, bm, npk, rng):
+    """B1 against its plain version on random planes at (bitmat, npk);
+    asserts bit-exactness and the path the call took.  Max |diff|."""
+    import torch
+
+    from ceph_tpu_torch.ops import gf8_cuda
+
+    rw, kw = (int(x) for x in bm.shape)
+    planes = torch.from_numpy(
+        rng.integers(0, 256, (kw, npk), dtype=np.uint8)).cuda()
+    kept = gf8_cuda.kept_launches
+    got = gf8_cuda.planar_matmul(bm, planes)
+    path = took_path(gf8_cuda, kept)
+    want = gf8_cuda.planar_matmul_ref(bm, planes)
+    torch.cuda.synchronize()
+    diff = int((got.int() - want.int()).abs().max())
+    if diff or not torch.equal(got, want):
+        raise AssertionError(f"B1 differs from its plain version: {name}")
+    if path != b1_expected_path(rw, kw, npk):
+        raise AssertionError(f"B1 took the {path} path: {name}")
+    log(f"kernel: B1 bit-exact, {name}, bitmat {(rw, kw)} x planes "
+        f"{(kw, npk)}, {path} path (lists "
+        f"{gf8_cuda.list_bytes(rw, kw)} B)")
+    return diff
+
+
+def tick_stripes(k: int, unit: int) -> int:
+    return sum(-(-s // (k * unit)) for s in TICK_SIZES)
+
+
+def phase_kernel_b1_codecs(shec, lrc, wide, rng):
+    """B1 at the shapes the SHEC, LRC and wide-field paths give it, with
+    the planes of one tick; returns max |diff|."""
+    worst = 0
+    npk = tick_stripes(8, 4096) * 4096 // 8          # SHEC at-rest planes
+    worst = max(worst, check_b1("SHEC k8m4c3 encode", shec.engine._enc_bitmat,
+                                npk, rng))
+    for er, want in [((4,), (4,)), ((0, 1), (0, 1)), ((3, 9), (3,)),
+                     ((0, 5, 11), (0, 5, 11))]:
+        bm, src = shec._planar_decode_plan(er, want)
+        worst = max(worst, check_b1(
+            f"SHEC decode {er} want {want} ({len(src)} sources)", bm, npk,
+            rng))
+    npk = tick_stripes(4, 4096) * 4096 // 8
+    worst = max(worst, check_b1("LRC k4m2l3 flattened encode",
+                                lrc._flat_encode_bitmat(), npk, rng))
+    bm, src = lrc._decode_plan_for((1,), (1,))
+    worst = max(worst, check_b1(f"LRC local decode (1,) from {src}", bm, npk,
+                                rng))
+    for codec in wide:
+        w = codec.w
+        npk = tick_stripes(8, 4096) * 4096 // w
+        name = f"reed_sol_van k8m4 w={w}"
+        worst = max(worst, check_b1(f"{name} encode",
+                                    codec.engine._enc_bitmat, npk, rng))
+        for er in [(2,), (1, 4, 8, 11)]:
+            src = tuple(i for i in range(12) if i not in er)[:8]
+            worst = max(worst, check_b1(f"{name} decode {er}",
+                                        codec.engine.decode_bitmat(src, er),
+                                        npk, rng))
+    return worst
+
+
+def tick_datas(seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, s, dtype=np.uint8).tobytes()
+            for s in TICK_SIZES]
+
+
+def relayout_bytes() -> int:
+    from ceph_tpu_torch.utils.perf import KERNELS
+
+    return KERNELS.dump()["device_kernels"].get("ec_planar_relayout_bytes", 0)
+
+
+def phase_shec_tick(shec, shec_cpu):
+    """One OSD tick of a SHEC k=8 m=4 c=3 pool with planes at rest, at
+    StripeInfo(8, 4096): encode with CRCs, decode for erasures the plane
+    engine solves and for erasures that relayout, and the recovery rebuild
+    in the plane domain; every result against the original data or the
+    at-rest planes, and against the port's plain version on the CPU."""
+    from ceph_tpu_torch.ec import planar_store as pstore
+    from ceph_tpu_torch.ec import stripe
+    from ceph_tpu_torch.ops import crc32c, gf8
+
+    sinfo = stripe.StripeInfo(8, shec.stripe_unit(4096))
+    if not stripe.planar_at_rest_ok(shec, sinfo.chunk_size):
+        raise AssertionError("SHEC k8m4c3 is not planar at rest")
+    n = shec.get_chunk_count()
+    datas = tick_datas(SEED + 8)
+    res = stripe.encode_planes_multi(shec, sinfo, datas,
+                                     want_crcs=[True] * len(datas))
+    cpu = stripe.encode_planes_multi(shec_cpu, sinfo, datas,
+                                     want_crcs=[True] * len(datas))
+    for (planes, crcs), (cplanes, ccrcs), d in zip(res, cpu, datas):
+        if not np.array_equal(planes, cplanes) or crcs != ccrcs:
+            raise AssertionError("SHEC planes differ from the plain version")
+        shards = pstore.planes_to_rows(planes.reshape(n * 8, -1))
+        ns = sinfo.object_stripes(len(d))
+        buf = np.zeros(ns * sinfo.stripe_width, dtype=np.uint8)
+        buf[:len(d)] = np.frombuffer(d, dtype=np.uint8)
+        rows = buf.reshape(ns, 8, 4096).transpose(1, 0, 2).reshape(8, -1)
+        want = np.vstack([rows, gf8.gf_matmul_ref(shec.engine.coding, rows)])
+        if not np.array_equal(shards, want):
+            raise AssertionError(f"SHEC shards differ for a {len(d)} B op")
+        if crcs != crc32c.crc32c_rows(shards):
+            raise AssertionError("SHEC shard CRCs differ from host crc32c")
+    stripes = sum(sinfo.object_stripes(len(d)) for d in datas)
+    log(f"stripe: SHEC k8m4c3 tick at StripeInfo(8, 4096): {len(datas)} ops, "
+        f"{stripes} stripes, planes equal the host reference and the plain "
+        "version, shard CRCs equal host crc32c")
+    for lost, solved in [((3, 9), True), ((4,), False), ((0, 1), False)]:
+        reqs = [({s: p[s] for s in range(n) if s not in lost}, len(d))
+                for (p, _c), d in zip(res, datas)]
+        before = relayout_bytes()
+        got = stripe.decode_planes_multi(shec, sinfo, reqs)
+        relayout = relayout_bytes() - before
+        if got != datas:
+            raise AssertionError(f"SHEC decode_planes_multi {lost} wrong")
+        if (relayout == 0) != solved:
+            raise AssertionError(f"SHEC decode {lost}: relayout {relayout} B")
+        log(f"stripe: SHEC decode_planes_multi with shards {lost} lost "
+            f"returns the original bytes ("
+            + ("plane engine" if solved else f"relayout of {relayout} B")
+            + ")")
+    for lost, solved in [((4,), False), ((0, 5, 11), True)]:
+        reqs = [({s: p[s] for s in range(n) if s not in lost}, len(d))
+                for (p, _c), d in zip(res, datas)]
+        before = relayout_bytes()
+        got = stripe.reencode_planes_multi(shec, sinfo, reqs)
+        relayout = relayout_bytes() - before
+        plain = stripe.reencode_planes_multi(shec_cpu, sinfo, reqs)
+        for g, c, (p, _c) in zip(got, plain, res):
+            if not (np.array_equal(g, p) and np.array_equal(g, c)):
+                raise AssertionError(f"SHEC reencode_planes_multi {lost}")
+        if (relayout == 0) != solved:
+            raise AssertionError(f"SHEC reencode {lost}: relayout {relayout}")
+        log(f"stripe: SHEC reencode_planes_multi with shards {lost} lost "
+            "rebuilds the at-rest planes, equal to the plain version ("
+            + ("plane engine" if solved else f"relayout of {relayout} B")
+            + ")")
+
+
+def byte_tick(codec, codec_cpu, sinfo, datas, label, lost_sets, rebuild):
+    """The byte-at-rest tick of a pool: coalesced encode with CRCs,
+    decode with lost shards and the recovery rebuild, each against the
+    port's plain version on the CPU (and the original bytes)."""
+    from ceph_tpu_torch.ec import stripe
+    from ceph_tpu_torch.ops import crc32c
+
+    n = codec.get_chunk_count()
+    flags = [True] * len(datas)
+    res = stripe.encode_stripes_multi(codec, sinfo, datas, want_crcs=flags)
+    cpu = stripe.encode_stripes_multi(codec_cpu, sinfo, datas,
+                                      want_crcs=flags)
+    for (sh, crcs), (csh, ccrcs) in zip(res, cpu):
+        if not np.array_equal(sh, csh) or crcs != ccrcs:
+            raise AssertionError(f"{label}: shards differ from plain version")
+        if crcs != crc32c.crc32c_rows(sh):
+            raise AssertionError(f"{label}: shard CRCs differ from host")
+    stripes = sum(sinfo.object_stripes(len(d)) for d in datas)
+    log(f"stripe: {label} tick at StripeInfo({sinfo.k}, {sinfo.chunk_size}): "
+        f"{len(datas)} ops, {stripes} stripes, shards and CRCs equal the "
+        "plain version on the CPU")
+    for lost in lost_sets:
+        reqs = [({s: sh[s] for s in range(n) if s not in lost}, len(d))
+                for (sh, _c), d in zip(res, datas)]
+        if stripe.decode_stripes_multi(codec, sinfo, reqs) != datas:
+            raise AssertionError(f"{label}: decode_stripes_multi {lost}")
+        log(f"stripe: {label} decode_stripes_multi with shards {lost} lost "
+            "returns the original bytes")
+    reqs = [({s: sh[s] for s in range(n) if s not in rebuild}, len(d))
+            for (sh, _c), d in zip(res, datas)]
+    for got, (sh, _c) in zip(stripe.reencode_stripes_multi(codec, sinfo,
+                                                           reqs), res):
+        if not np.array_equal(got, sh):
+            raise AssertionError(f"{label}: reencode_stripes_multi differs")
+    log(f"stripe: {label} reencode_stripes_multi with shards {rebuild} lost "
+        "rebuilds every shard")
+
+
+def phase_lrc_tick(lrc, lrc_cpu):
+    """One byte-at-rest tick of an LRC k=4 m=2 l=3 pool (8 chunks in 3
+    layers) at StripeInfo(4, 4096): one local loss, which reads only its
+    l+1 group, a loss in each group, and a recovery rebuild."""
+    from ceph_tpu_torch.ec import stripe
+
+    sinfo = stripe.StripeInfo(4, lrc.stripe_unit(4096))
+    byte_tick(lrc, lrc_cpu, sinfo, tick_datas(SEED + 9), "LRC k4m2l3",
+              [(1,), (1, 2)], (0, 6))
+    _bm, src = lrc._decode_plan_for((1,), (1,))
+    if len(src) != 3 or set(src) != {0, 4, 5}:
+        raise AssertionError(f"LRC local loss of chunk 1 reads {src}")
+    log(f"stripe: LRC single loss of chunk 1 gathers only chunks {src}, "
+        "the rest of its local group")
+
+
+def phase_wide_codec(codec, codec_cpu, rng):
+    """reed_sol_van k8m4 at w=16 or 32: codec encode and decode on the
+    byte layout (torch matmul on bits) and the bitpack planes (B1), equal
+    to each other and to the plain version, and the object
+    encode/decode_concat."""
+    w = codec.w
+    label = f"reed_sol_van k8m4 w={w}"
+    data = rng.integers(0, 256, (64, 8, 4096), dtype=np.uint8)
+    byte_par = codec.encode_batch(data).cpu().numpy()
+    planar_par = codec.encode_planar(codec.to_planar(data)).to_batch()
+    if not np.array_equal(planar_par.cpu().numpy(), byte_par):
+        raise AssertionError(f"{label}: planar and byte parity differ")
+    if not np.array_equal(byte_par, codec_cpu.encode_planar(
+            codec_cpu.to_planar(data)).to_batch().numpy()):
+        raise AssertionError(f"{label}: parity differs from plain version")
+    full = np.concatenate([data, byte_par], axis=1)
+    for er in [(2,), (0, 9), (1, 4, 8, 11)]:
+        chunks = full.copy()
+        chunks[:, list(er), :] = 0
+        dec_b = codec.decode_batch(er, chunks).cpu().numpy()
+        dec_p = codec.decode_planar(er, codec.to_planar(chunks)).to_batch()
+        if not (np.array_equal(dec_b, full[:, list(er), :])
+                and np.array_equal(dec_p.cpu().numpy(), dec_b)):
+            raise AssertionError(f"{label}: decode {er} wrong")
+    obj = rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    enc = codec.encode(range(12), obj)
+    cenc = codec_cpu.encode(range(12), obj)
+    if any(not np.array_equal(enc[i], cenc[i]) for i in range(12)):
+        raise AssertionError(f"{label}: encode differs from plain version")
+    avail = {i: c for i, c in enc.items() if i not in (0, 5, 9, 11)}
+    if codec.decode_concat(avail)[:len(obj)] != obj:
+        raise AssertionError(f"{label}: decode_concat wrong")
+    log(f"codec: {label} byte and planar encode/decode of 64x8x4096 B "
+        "agree with each other and the plain version; a 1 MiB object "
+        "round-trips")
+
+
+def phase_wide_tick(codec, codec_cpu):
+    from ceph_tpu_torch.ec import stripe
+
+    sinfo = stripe.StripeInfo(8, codec.stripe_unit(4096))
+    byte_tick(codec, codec_cpu, sinfo, tick_datas(SEED + 10 + codec.w),
+              f"reed_sol_van k8m4 w={codec.w}", [(3,), (0, 6, 9, 11)],
+              (1, 9))
+
+
 def phase_one_launch(codec, data):
     """One warm cauchy ``encode_planar`` call under torch.profiler: exactly
     one device kernel, B2's staged kernel, and no ``pack_blocks_kernel``
@@ -732,6 +997,42 @@ def phase_timing(codec, data, card: str, yard_ms: float):
             "bound_by": bound_by}
 
 
+def phase_timing_b1_shapes(shapes, card: str):
+    """B1 at the w=16, w=32 and SHEC encode shapes with 16 MiB of input
+    planes each, L2 flushed as in phase_timing; returns one dict per
+    shape."""
+    import torch
+
+    from ceph_tpu_torch.ops import gf8_cuda
+
+    rng = np.random.default_rng(SEED + 11)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out = []
+    for label, bm in shapes:
+        rw, kw = (int(x) for x in bm.shape)
+        npk = (16 << 20) // kw
+        planes = torch.from_numpy(
+            rng.integers(0, 256, (kw, npk), dtype=np.uint8)).cuda()
+        path = b1_expected_path(rw, kw, npk)
+        ms = cuda_median_ms(lambda: gf8_cuda.planar_matmul(bm, planes), 50,
+                            flush)
+        plain_ms = cuda_median_ms(
+            lambda: gf8_cuda.planar_matmul_ref(bm, planes), 5, flush)
+        nbytes = kw * npk + rw * npk + rw * kw
+        bits = int(bm.sum().item())
+        xors = bits * npk / 4
+        bound_ms, bound_by, bytes_ms, ops_ms = _bound(nbytes, xors)
+        log(f"timing: B1 {label} ({rw}x{kw} x {kw}x{npk}, {bits} set bits, "
+            f"{path} path) median {ms:.6f} ms, plain version "
+            f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({nbytes} bytes -> "
+            f"{bytes_ms:.6f} ms; {xors:.0f} XORs -> {ops_ms:.6f} ms), "
+            f"{100 * bound_ms / ms:.1f} % of the bound [{card}]")
+        out.append({"shape": label, "path": path, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+    return out
+
+
 def phase_timing_b2(codec, data, card: str, yard_ms: float):
     """B2 at the cauchy headline lane shape, as the codec calls it (with
     its host-packed table), and the cauchy encode step; returns the
@@ -809,8 +1110,17 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     isa = factory({"plugin": "isa", "k": "8", "m": "4"})
     cauchy = factory(CAUCHY_PROFILE)
-    assert isa.device.type == "cuda" and cauchy.device.type == "cuda"
+    shec, shec_cpu = (factory(SHEC_PROFILE, device=d) for d in (None, "cpu"))
+    lrc, lrc_cpu = (factory(LRC_PROFILE, device=d) for d in (None, "cpu"))
+    wide = {w: tuple(factory({**WIDE_PROFILE, "w": str(w)}, device=d)
+                     for d in (None, "cpu")) for w in (16, 32)}
+    for codec in [isa, cauchy, shec, lrc] + [c for c, _ in wide.values()]:
+        assert codec.device.type == "cuda"
+    assert {layer.erasure_code.device.type for layer in lrc.layers} == \
+        {"cuda"}
     b1_err = phase_kernel(isa, rng)
+    b1_err = max(b1_err, phase_kernel_b1_codecs(
+        shec, lrc, [c for c, _ in wide.values()], rng))
     b2_err = phase_kernel_b2(cauchy, rng)
 
     def reset_counts():
@@ -856,11 +1166,43 @@ def main() -> int:
         raise AssertionError("the default-profile tick never launched B1")
     if j_kept:
         raise AssertionError("a jerasure main-path launch took the kept path")
+    b1_launches += j_b1
+
+    # the main paths of the erasure-code slice: SHEC planar at rest, LRC
+    # and reed_sol_van at w=16 and w=32 byte at rest, all on B1; each
+    # counted from 0 just before and read just after
+    paths = [
+        ("SHEC k8m4c3", lambda: phase_shec_tick(shec, shec_cpu), False),
+        ("LRC k4m2l3", lambda: phase_lrc_tick(lrc, lrc_cpu), False),
+    ] + [(f"reed_sol_van k8m4 w={w}",
+          (lambda c=c, cc=cc: (phase_wide_codec(c, cc, rng),
+                               phase_wide_tick(c, cc))), w == 32)
+         for w, (c, cc) in wide.items()]
+    for label, run, kept_expected in paths:
+        reset_counts()
+        run()
+        torch.cuda.synchronize()
+        log(f"main path ({label}): {path_counts('B1', gf8_cuda)}, "
+            f"{path_counts('B2', gf8_bytes_cuda)}; counters "
+            f"{json.dumps(KERNELS.dump()['device_kernels'], sort_keys=True)}")
+        if gf8_cuda.launches <= 0:
+            raise AssertionError(f"the {label} path never launched kernel B1")
+        if gf8_bytes_cuda.launches:
+            raise AssertionError(f"the {label} path launched kernel B2")
+        if bool(gf8_cuda.kept_launches) != kept_expected:
+            raise AssertionError(
+                f"the {label} path took the kept path "
+                f"{gf8_cuda.kept_launches} times")
+        b1_launches += gf8_cuda.launches
 
     phase_one_launch(cauchy, cdata)
     yard_ms = phase_yardstick(card)
     t1 = phase_timing(isa, data, card, yard_ms)
     t2 = phase_timing_b2(cauchy, cdata, card, yard_ms)
+    phase_timing_b1_shapes(
+        [("reed_sol_van k8m4 w=16 encode", wide[16][0].engine._enc_bitmat),
+         ("reed_sol_van k8m4 w=32 encode", wide[32][0].engine._enc_bitmat),
+         ("SHEC k8m4c3 encode", shec.engine._enc_bitmat)], card)
     phase_clean_l2(isa, cauchy, card)
     log(card)
     kernels = [{

@@ -3,7 +3,8 @@
 - importing the package pulls in neither JAX nor any ``ceph_tpu`` module;
 - no source file of the package imports jax, ceph_tpu or google_crc32c;
 - an entry point asked for no device runs on CUDA, and raises where there
-  is none instead of running on the CPU;
+  is none instead of running on the CPU; an LRC codec's layers run on its
+  device;
 - the B1 and B2 wrappers never answer a non-CPU tensor with their plain
   versions.
 """
@@ -39,9 +40,14 @@ def test_import_leaves_jax_and_reference_out():
         "import ceph_tpu_torch.ec.jerasure, ceph_tpu_torch.ec.liberation\n"
         "import ceph_tpu_torch.ec.planar, ceph_tpu_torch.ops.gfw\n"
         "import ceph_tpu_torch.ops.gf8_bytes_cuda\n"
+        "import ceph_tpu_torch.ec.lrc, ceph_tpu_torch.ec.shec\n"
         "from ceph_tpu_torch.ec import factory\n"
         "factory({'plugin': 'jerasure', 'technique': 'cauchy_good',"
         " 'k': '4', 'm': '2'}, device='cpu')\n"
+        "factory({'plugin': 'lrc', 'k': '4', 'm': '2', 'l': '3'},"
+        " device='cpu')\n"
+        "factory({'plugin': 'shec', 'k': '8', 'm': '4', 'c': '3'},"
+        " device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ceph_tpu' or m.startswith('ceph_tpu.')"
         " or m == 'google_crc32c']\n"
@@ -80,10 +86,34 @@ def test_factory_defaults_to_cuda_and_refuses_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         factory({})                 # the default plugin, jerasure
     with pytest.raises(RuntimeError, match="CUDA"):
+        factory({"plugin": "shec", "k": "8", "m": "4", "c": "3"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        factory({"plugin": "lrc", "k": "4", "m": "2", "l": "3"})
+    with pytest.raises(RuntimeError, match="CUDA"):
         pcodec.engine_from_reference(np.ones((2, 4), dtype=np.uint8), 4, 2)
     assert pcodec.resolve_device("cpu").type == "cpu"
     assert factory({"plugin": "isa", "k": "4", "m": "2"},
                    device="cpu").device.type == "cpu"
+    lrc = factory({"plugin": "lrc", "k": "4", "m": "2", "l": "3"},
+                  device="cpu")
+    assert {layer.erasure_code.device.type for layer in lrc.layers} == {"cpu"}
+
+
+def test_lrc_layers_follow_the_codec_to_cuda(monkeypatch):
+    """An LRC codec on CUDA builds every layer codec on CUDA: the device
+    reaches the registry.  (Here CUDA is faked as present and the layers'
+    bit-matrices stay on the host, so only the device choice is checked.)"""
+    from ceph_tpu_torch.ec import codec as pcodec_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.Tensor, "to",
+                        lambda self, *a, **k: self)
+    lrc = factory({"plugin": "lrc", "k": "4", "m": "2", "l": "3"})
+    shec = factory({"plugin": "shec", "k": "8", "m": "4", "c": "3"})
+    assert lrc.device.type == shec.device.type == "cuda"
+    assert {layer.erasure_code.device.type for layer in lrc.layers} == \
+        {"cuda"}
+    assert pcodec_mod.resolve_device().type == "cuda"
 
 
 def test_b1_wrapper_refuses_instead_of_falling_back(monkeypatch, tmp_path):

@@ -12,8 +12,8 @@ reference on JAX-CPU.  Inputs are seeded numpy; every comparison is exact
 - the table kernel B2 reads for each packet technique's encode and decode
   matrices (block words and classes, packed on the host and cached);
 - the jerasure rows of ``tests/golden/ec_golden.jsonl`` replayed through
-  the port.  ``reed_sol_*`` at w=16/32 encode only with the gfw slice:
-  their rows check the coding matrix and that encode says so.
+  the port, ``reed_sol_*`` at w=16/32 among them;
+- ``reed_sol_*`` at w=16/32 through the byte and bitpack-planar layouts.
 """
 
 import errno
@@ -237,7 +237,7 @@ def _golden():
     return [c for c in cases if c["plugin"] == "jerasure"]
 
 
-def _waits_for_gfw(case):
+def _wide_reed_sol(case):
     return case["technique"].startswith("reed_sol") and case["w"] != 8
 
 
@@ -283,7 +283,7 @@ def _golden_codec(case):
 
 
 @pytest.mark.parametrize(
-    "case", [c for c in _golden() if not _waits_for_gfw(c)], ids=_golden_id)
+    "case", [c for c in _golden() if not _wide_reed_sol(c)], ids=_golden_id)
 def test_jerasure_golden_rows_through_port(case):
     """The independent C oracle's jerasure rows, replayed through the port
     exactly as tests/test_ec_golden.py replays them through ceph_tpu."""
@@ -299,22 +299,65 @@ def test_jerasure_golden_rows_through_port(case):
 
 
 @pytest.mark.parametrize(
-    "case", [c for c in _golden() if _waits_for_gfw(c)], ids=_golden_id)
+    "case", [c for c in _golden() if _wide_reed_sol(c)], ids=_golden_id)
 def test_wide_reed_sol_golden_rows_wait_for_gfw_slice(case):
     """reed_sol_* at w=16/32 encode through the word-layout device half
-    of gfw, which a later slice ports: the coding matrix already equals
-    the oracle's, and encoding says which slice it waits for."""
+    of gfw: every chunk equals the C oracle's and the reference's, and a
+    decode with two chunks lost gives the object back."""
     codec = _golden_codec(case)
     data = _lcg_bytes(case["seed"], case["object_size"])
-    with pytest.raises(NotImplementedError, match="gfw"):
-        codec.encode(range(codec.get_chunk_count()), data)
+    n = codec.get_chunk_count()
+    chunks = codec.encode(range(n), data)
+    ref = jfactory(dict(codec.get_profile())).encode(range(n), data)
+    for i in range(n):
+        blob = chunks[i].tobytes()
+        assert len(blob) == case["chunk_size"]
+        assert blob[:16].hex() == case["chunks"][i]["head"]
+        assert _fnv1a64(blob) == case["chunks"][i]["fnv1a64"]
+        assert np.array_equal(chunks[i], ref[i])
+    avail = {i: c for i, c in chunks.items() if i not in (0, n - 1)}
+    assert codec.decode_concat(avail)[:len(data)] == data
+
+
+@pytest.mark.parametrize("prof", WIDE_MATRIX_PROFILES, ids=_ids)
+def test_wide_reed_sol_batch_and_planar_equal_reference(prof):
+    """reed_sol_* at w=16/32: byte-layout batch encode/decode and the
+    bitpack planes (B1's (m*w, k*w) bit-matrices) against the reference."""
+    jc, pc = _pair(*prof)
+    k, n, w = pc.k, pc.get_chunk_count(), pc.w
+    data = np.random.default_rng(k * 10 + w).integers(
+        0, 256, (3, k, 2 * w), dtype=np.uint8)
+    parity = _np(pc.encode_batch(data))
+    assert np.array_equal(parity, np.asarray(jc.encode_batch(data)))
+    ppb, jpb = pc.to_planar(data), jc.to_planar(data)
+    assert ppb.layout == jpb.layout == "bitpack"
+    assert tuple(ppb.planes.shape) == (k * w, 3 * 2)
+    assert np.array_equal(ppb.planes.numpy(), np.asarray(jpb.planes))
+    ppar = pc.encode_planar(ppb)
+    assert np.array_equal(ppar.planes.numpy(),
+                          np.asarray(jc.encode_planar(jpb).planes))
+    assert np.array_equal(_np(ppar.to_batch()), parity)
+    full = np.concatenate([data, parity], axis=1)
+    full_pb, jfull_pb = pc.to_planar(full), jc.to_planar(full)
+    for erasures in [(1,), (k,), (0, k + 1), (0, 1)]:
+        chunks = full.copy()
+        chunks[:, list(erasures), :] = 0
+        got = _np(pc.decode_batch(erasures, chunks))
+        assert np.array_equal(got, np.asarray(jc.decode_batch(erasures,
+                                                              chunks)))
+        assert np.array_equal(got, full[:, list(erasures), :])
+        pdec = pc.decode_planar(erasures, full_pb)
+        assert np.array_equal(
+            pdec.planes.numpy(),
+            np.asarray(jc.decode_planar(erasures, jfull_pb).planes))
+        assert np.array_equal(_np(pdec.to_batch()), full[:, list(erasures), :])
 
 
 def test_golden_rows_cover_every_technique():
     cases = _golden()
     assert {c["technique"] for c in cases} == set(jerasure.TECHNIQUES)
-    assert sum(not _waits_for_gfw(c) for c in cases) == 13
-    assert sum(_waits_for_gfw(c) for c in cases) == 3
+    assert sum(not _wide_reed_sol(c) for c in cases) == 13
+    assert sum(_wide_reed_sol(c) for c in cases) == 3
 
 
 def test_default_profile_is_jerasure_reed_sol_van_k2m1():
