@@ -9,8 +9,8 @@ the identical math as one GF(2) matmul:
 - ``MatrixCodec`` (ISA, jerasure reed_sol_*, SHEC, and LRC's layers):
   bytewise GF(2^w) codes, w in {8, 16, 32}.  The byte layout
   (``encode_chunks``/``encode_batch`` and their decodes) runs
-  ``gf8.bitmatrix_matmul`` (w=8) or ``gfw.bitmatrix_matmul_w`` (w=16/32),
-  a float32 ``torch.matmul`` on unpacked bits; the bit-planar layout
+  ``gfw.bitmatrix_matmul_w`` over w-bit words, a float32 ``torch.matmul``
+  on unpacked bits; the bit-planar layout
   (``encode_planar``/``decode_planar``) runs the packed plane matmul
   ``gf8.planar_matmul`` on ``(r*w, k*w)`` bit-matrices, kernel B1 on the
   card, for every w.
@@ -120,12 +120,9 @@ class _DeviceMatrixEngine:
         self.w = w
         self.word_bytes = w // 8
         self.device = resolve_device(device)
-        if w == 8:
-            self.coding = np.asarray(coding).astype(np.uint8)
-            bits = gf8.expand_bitmatrix(self.coding)
-        else:
-            self.coding = np.asarray(coding).astype(np.uint64)
-            bits = gfw.expand_bitmatrix_w(self.coding, w)
+        self.coding = np.asarray(coding).astype(
+            np.uint8 if w == 8 else np.uint64)
+        bits = gfw.expand_bitmatrix_w(self.coding, w)
         self._enc_bitmat = torch.from_numpy(bits).to(self.device)
         self.generator = matrices.generator_matrix(self.coding)
         self._decode_cache = DecodeTableCache()
@@ -135,19 +132,14 @@ class _DeviceMatrixEngine:
 
     def _apply(self, bitmat, data: np.ndarray) -> np.ndarray:
         _record_kernel("ec_matmul", data.size)
-        data = self._to_dev(data)
-        if self.w == 8:
-            out = gf8.bitmatrix_matmul(bitmat, data)
-        else:
-            out = gfw.bitmatrix_matmul_w(bitmat, data, self.word_bytes)
+        out = gfw.bitmatrix_matmul_w(bitmat, self._to_dev(data),
+                                     self.word_bytes)
         return out.cpu().numpy()
 
     def _apply_batch(self, bitmat, data) -> torch.Tensor:
         """(B, k, S) -> (B, r, S) on the device."""
         data = self._to_dev(data)
         _record_kernel("ec_matmul", data.numel())
-        if self.w == 8:
-            return gf8.encode_batch(bitmat, data)
         return gfw.encode_batch_w(bitmat, data, self.word_bytes)
 
     def encode_parity(self, data: np.ndarray) -> np.ndarray:
@@ -201,8 +193,7 @@ class _DeviceMatrixEngine:
         bitmat = self._decode_cache.get(key)
         if bitmat is None:
             rmat = self.decode_matrix(src_rows, out_rows)
-            bits = gf8.expand_bitmatrix(rmat) if self.w == 8 \
-                else gfw.expand_bitmatrix_w(rmat, self.w)
+            bits = gfw.expand_bitmatrix_w(rmat, self.w)
             bitmat = torch.from_numpy(bits).to(self.device)
             self._decode_cache.put(key, bitmat)
         return bitmat
@@ -428,8 +419,7 @@ class BitmatrixCodec(MatrixCodec):
     def prepare(self) -> None:
         super().prepare()
         coding = self.engine.coding
-        self._enc_bits = gf8.expand_bitmatrix(coding) if self.w == 8 \
-            else gfw.expand_bitmatrix_w(coding, self.w)
+        self._enc_bits = gfw.expand_bitmatrix_w(coding, self.w)
 
     # -- bit-matrix sources (overridden by native bit-matrix codes) ---------
 
@@ -440,10 +430,8 @@ class BitmatrixCodec(MatrixCodec):
     def _decode_bits(self, src: Tuple[int, ...],
                      out: Tuple[int, ...]) -> np.ndarray:
         """(len(out)*w, k*w) GF(2) recovery matrix over the src chunks."""
-        rows = self.engine.decode_matrix(src, out)
-        if self.w == 8:
-            return gf8.expand_bitmatrix(rows)
-        return gfw.expand_bitmatrix_w(rows, self.w)
+        return gfw.expand_bitmatrix_w(self.engine.decode_matrix(src, out),
+                                      self.w)
 
     def _lane(self, m01: np.ndarray) -> torch.Tensor:
         m01 = np.ascontiguousarray(m01, dtype=np.uint8)

@@ -6,9 +6,8 @@ the two codec families:
 - ``bitpack`` (the matrix codecs: ISA, jerasure reed_sol_*, SHEC, LRC): a
   stripe batch ``(B, c, S)`` lives on the device as packed planes
   ``(c*w, B*S/w)`` uint8 with chunk-major plane rows (row ``j*w + t`` is
-  bit-plane t of chunk j), built by ``gf8.bytes_to_planar`` (w=8) or
-  ``gfw.bytes_to_planar_w`` (w=16/32) over the shard-major ``(c, B*S)``
-  view.
+  bit-plane t of chunk j), built by ``gfw.bytes_to_planar_w`` over the
+  shard-major ``(c, B*S)`` view.
 - ``packet`` (the packet codecs: jerasure cauchy_*, liberation family):
   those chunks are already bit-interleaved at packet granularity
   (jerasure's w packets of p bytes per super-block are packed
@@ -27,25 +26,19 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ceph_tpu_torch.ops import gf8, gfw
+from ceph_tpu_torch.ops import gfw
 from ceph_tpu_torch.ops.profiling import record_planar_convert
 
 
 def _batch_to_planes(batch: torch.Tensor, w: int) -> torch.Tensor:
     """(B, c, S) bytes -> (c*w, B*S/w) packed planes (shard-major cols)."""
     b, c, s = batch.shape
-    rows = batch.permute(1, 0, 2).reshape(c, b * s)
-    if w == 8:
-        return gf8.bytes_to_planar(rows)
-    return gfw.bytes_to_planar_w(rows, w)
+    return gfw.bytes_to_planar_w(batch.permute(1, 0, 2).reshape(c, b * s), w)
 
 
 def _planes_to_batch(planes: torch.Tensor, b: int, c: int, s: int,
                      w: int) -> torch.Tensor:
-    if w == 8:
-        rows = gf8.planar_to_bytes(planes)
-    else:
-        rows = gfw.planar_to_bytes_w(planes, w)
+    rows = gfw.planar_to_bytes_w(planes, w)
     return rows.reshape(c, b, s).permute(1, 0, 2).contiguous()
 
 

@@ -190,11 +190,6 @@ class ErasureCodeShec(MatrixCodec):
     def _word_dtype(self):
         return np.uint8 if self.w == 8 else np.uint64
 
-    def _expand(self, rmat: np.ndarray) -> np.ndarray:
-        if self.w == 8:
-            return gf8.expand_bitmatrix(rmat)
-        return gfw.expand_bitmatrix_w(rmat, self.w)
-
     def _invert(self, mat: np.ndarray) -> np.ndarray:
         if self.w == 8:
             return gf8.gf_invert_matrix(mat.astype(np.uint8))
@@ -321,8 +316,9 @@ class ErasureCodeShec(MatrixCodec):
         bytes, the codec's device otherwise."""
         if self.w == 8 and data.shape[1] < 4096:
             return np.asarray(gf8.gf_matmul_ref(rows, data))
-        return self.engine._apply(
-            torch.from_numpy(self._expand(rows)).to(self.device), data)
+        bitmat = gfw.expand_bitmatrix_w(rows, self.w)
+        return self.engine._apply(torch.from_numpy(bitmat).to(self.device),
+                                  data)
 
     def decode_chunks(
         self,
@@ -437,7 +433,8 @@ class ErasureCodeShec(MatrixCodec):
                         acc ^= self._mul(cj, data_expr(j)).astype(word_dtype)
                 rows.append(acc)
         rmat = np.stack(rows).astype(word_dtype)
-        bitmat = torch.from_numpy(self._expand(rmat)).to(self.device)
+        bitmat = torch.from_numpy(
+            gfw.expand_bitmatrix_w(rmat, self.w)).to(self.device)
         plan = (bitmat, tuple(src_list))
         self._batch_cache[cache_key] = plan
         return plan

@@ -476,10 +476,10 @@ def _parity_planes_for(codec, data_planes) -> torch.Tensor:
                              _to_device(data_planes, codec.device))
 
 
-def _select_shard_planes(full_planes: torch.Tensor,
-                         shards: Tuple[int, ...]) -> torch.Tensor:
+def _select_shard_planes(full_planes: np.ndarray,
+                         shards: Tuple[int, ...]) -> np.ndarray:
     """Row-select whole shards (8 plane rows each) from a chunk-major
-    plane matrix: a gather, no layout change."""
+    host plane matrix: a gather, no layout change."""
     cols = full_planes.shape[1]
     return full_planes.reshape(-1, 8, cols)[list(shards)].reshape(-1, cols)
 
@@ -692,10 +692,11 @@ def reencode_planes_multi(codec, sinfo: StripeInfo, reqs):
             for s, a in arrs.items():
                 full[s * 8:s * 8 + 8, c0:c0 + cw] = a
             c0 += cw
-        planes = _to_device(full, codec.device)
         if want:
+            # only the src rows go to the device, and only once the plane
+            # engine has a solution for the pattern
             rec = _planes_rows_for(codec, src, want,
-                                   _select_shard_planes(planes, src))
+                                   _select_shard_planes(full, src))
             if rec is None:
                 # relayout the group through one coalesced byte recovery
                 # rebuild
@@ -707,10 +708,10 @@ def reencode_planes_multi(codec, sinfo: StripeInfo, reqs):
                         n, 8, rows.shape[1] // 8)
                     record_planar_at_rest("relayout", int(rows.size))
                 continue
+            rec = rec.cpu().numpy()
             for idx, e in enumerate(want):
-                planes[e * 8:e * 8 + 8] = rec[idx * 8:idx * 8 + 8]
-        planes[k * 8:] = _parity_planes_for(codec, planes[: k * 8])
-        full = planes.cpu().numpy()
+                full[e * 8:e * 8 + 8] = rec[idx * 8:idx * 8 + 8]
+        full[k * 8:] = _parity_planes_for(codec, full[: k * 8]).cpu().numpy()
         c0 = 0
         for i, _arrs, ns, _ls in items:
             cw = ns * unit // 8

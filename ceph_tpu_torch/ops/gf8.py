@@ -12,12 +12,17 @@ tables, ``gf_pow``, ``expand_bitmatrix``, ``gf_invert_matrix``,
 
 Device side (torch, on whatever device the tensors live):
 
-- the byte path ``unpack_bits``/``pack_bits``/``bitmatrix_matmul`` (also
-  the plain version of kernel B2, ``gf8_bytes_cuda``);
+- the byte path ``unpack_bits``/``pack_bits``/``bitmatrix_matmul``/
+  ``encode_batch`` (also the plain version of kernel B2,
+  ``gf8_bytes_cuda``);
 - the packed bit-planar layout ``bytes_to_planar``/``planar_to_bytes``;
 - ``planar_matmul``, which hands packed planes to the hand-written CUDA
   kernel (``gf8_cuda``) for a CUDA tensor and to its plain version for a
   CPU tensor.
+
+The layout functions take the word width: bytes (w=8) by default, or the
+little-endian 16- and 32-bit words of GF(2^16)/GF(2^32), which ``gfw``
+exports under the reference's ``_w`` names.
 """
 
 from __future__ import annotations
@@ -134,50 +139,64 @@ def _shifts(device) -> torch.Tensor:
     return torch.arange(8, dtype=torch.uint8, device=device)
 
 
-def unpack_bits(data: torch.Tensor) -> torch.Tensor:
-    """(k, n) uint8 -> (8k, n) uint8 of {0,1}, LSB-first within each byte."""
+def unpack_bits(data: torch.Tensor, word_bytes: int = 1) -> torch.Tensor:
+    """(k, n) uint8 -> (k*w, n/word_bytes) uint8 of {0,1}, w = 8*word_bytes.
+
+    Row j*w + t holds bit t of every little-endian w-bit word of chunk j:
+    bit t%8 of byte t//8 (LSB-first bytes at w=8; the layout
+    galois_wNN_region_multiply sees on x86 at w=16/32)."""
     k, n = data.shape
-    bits = (data[:, None, :] >> _shifts(data.device)[None, :, None]) & 1
-    return bits.reshape(k * 8, n)
+    nw = n // word_bytes
+    words = data.reshape(k, nw, word_bytes).permute(0, 2, 1)   # (k, wb, nw)
+    bits = (words[:, :, None, :] >> _shifts(data.device)[:, None]) & 1
+    return bits.reshape(k * word_bytes * 8, nw)
 
 
-def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """(8r, n) {0,1} -> (r, n) uint8, LSB-first."""
-    r8, n = bits.shape
-    b = bits.reshape(r8 // 8, 8, n).to(torch.uint8)
-    out = torch.zeros((r8 // 8, n), dtype=torch.uint8, device=bits.device)
+def pack_bits(bits: torch.Tensor, word_bytes: int = 1) -> torch.Tensor:
+    """(r*w, nw) {0,1} -> (r, nw*word_bytes) uint8 (unpack_bits^-1)."""
+    rw, nw = bits.shape
+    r = rw // (8 * word_bytes)
+    b = bits.reshape(r, word_bytes, 8, nw).to(torch.uint8)
+    out = torch.zeros((r, word_bytes, nw), dtype=torch.uint8,
+                      device=bits.device)
     for t in range(8):
-        out |= b[:, t, :] << t
-    return out
+        out |= b[:, :, t, :] << t
+    return out.permute(0, 2, 1).reshape(r, nw * word_bytes)
 
 
-def bitmatrix_matmul(bitmat, data: torch.Tensor) -> torch.Tensor:
-    """GF(2^8) matmul in bit-matrix form on raw bytes.
+def bitmatrix_matmul(bitmat, data: torch.Tensor,
+                     word_bytes: int = 1) -> torch.Tensor:
+    """GF(2^w) matmul in bit-matrix form on raw bytes of w-bit words.
 
-    bitmat: (8r, 8k) {0,1}; data: (k, n) uint8 -> (r, n) uint8.
+    bitmat: (r*w, k*w) {0,1}; data: (k, n) uint8 -> (r, n) uint8, with
+    w = 8*word_bytes (``gfw.expand_bitmatrix_w`` builds the wide ones).
 
     The JAX package leaves this to XLA, so the port leaves it to
     ``torch.matmul`` in float32 on the unpacked bits.  That is exact:
     every entry is 0 or 1, which TF32 also represents exactly, and every
-    sum is at most 8k <= 2048 < 2**24, which float32 holds exactly.
+    sum is at most k*w <= 8192 < 2**24, which float32 holds exactly.
     """
     bm = torch.as_tensor(bitmat, device=data.device).to(torch.float32)
     k, n = data.shape
-    r = bm.shape[0] // 8
+    w = 8 * word_bytes
+    r = bm.shape[0] // w
     out = torch.empty((r, n), dtype=torch.uint8, device=data.device)
-    step = max(1, _UNPACKED_BUDGET // max(1, 32 * k))
+    # words per pass: the unpacked float32 operand stays under the budget
+    step = max(1, _UNPACKED_BUDGET // max(1, 4 * k * w)) * word_bytes
     for c0 in range(0, n, step):
-        bits = unpack_bits(data[:, c0:c0 + step]).to(torch.float32)
+        bits = unpack_bits(data[:, c0:c0 + step], word_bytes).to(
+            torch.float32)
         acc = torch.matmul(bm, bits).to(torch.int32) & 1
-        out[:, c0:c0 + step] = pack_bits(acc)
+        out[:, c0:c0 + step] = pack_bits(acc, word_bytes)
     return out
 
 
-def encode_batch(bitmat, data: torch.Tensor) -> torch.Tensor:
+def encode_batch(bitmat, data: torch.Tensor,
+                 word_bytes: int = 1) -> torch.Tensor:
     """(B, k, S) -> (B, r, S) through ``bitmatrix_matmul``."""
     b, k, s = data.shape
     cols = data.permute(1, 0, 2).reshape(k, b * s)
-    out = bitmatrix_matmul(bitmat, cols)
+    out = bitmatrix_matmul(bitmat, cols, word_bytes)
     return out.reshape(out.shape[0], b, s).permute(1, 0, 2).contiguous()
 
 
@@ -185,17 +204,21 @@ def encode_batch(bitmat, data: torch.Tensor) -> torch.Tensor:
 # Bit-planar layout: the device format for EC batches
 # ---------------------------------------------------------------------------
 #
-# A shard row of L bytes is stored as 8 PACKED bit-planes: plane t, packed
-# byte i holds bit t of source bytes 8i..8i+7, with byte 8i+u at bit u.
-# Rows are chunk-major — plane row j*8+t is bit-plane t of chunk j — which
-# matches expand_bitmatrix's row blocks, so the planar GF(2) matmul uses
-# the SAME bit-matrix as the byte path.
+# A shard row of L bytes = L/(w/8) little-endian w-bit words is stored as w
+# PACKED bit-planes of L/w bytes each: plane t, packed byte i holds bit t of
+# words 8i..8i+7 (word 8i+u at bit u), where bit t of a word is bit t%8 of
+# its byte t//8.  Rows are chunk-major -- plane row j*w + t is bit-plane t
+# of chunk j -- which matches the bit-matrix's row blocks, so the planar
+# GF(2) matmul uses the SAME bit-matrix as the byte path.  For each chunk,
+# packed column i and word byte b, the 8 bytes b of words 8i..8i+7 form an
+# 8x8 bit matrix whose transpose is the 8 plane bytes b*8 .. b*8+7 of
+# column i.  Total bytes equal the byte layout for every w.
 
 
 def _as_words(data: torch.Tensor) -> torch.Tensor:
     """(..., 8n) uint8 -> (..., n) int64 words over the same bytes."""
     if not data.is_contiguous() or data.storage_offset() % 8:
-        data = data.clone()
+        data = data.clone(memory_format=torch.contiguous_format)
     return data.view(torch.int64)
 
 
@@ -212,26 +235,31 @@ def _transpose8(x: torch.Tensor) -> torch.Tensor:
     return x ^ t ^ (t << 28)
 
 
-def bytes_to_planar(data: torch.Tensor) -> torch.Tensor:
-    """(c, L) uint8 bytes -> (8c, L/8) packed bit-planes, chunk-major rows.
+def bytes_to_planar(data: torch.Tensor, w: int = 8) -> torch.Tensor:
+    """(c, L) uint8 bytes -> (c*w, L/w) packed bit-planes, chunk-major rows.
 
-    planar[j*8 + t, i] bit u  ==  bit t of data[j, 8i + u]: each group of
-    8 source bytes is an 8x8 bit matrix, and its transpose holds the 8
-    plane bytes."""
+    At w=8: planar[j*8 + t, i] bit u  ==  bit t of data[j, 8i + u]."""
     c, length = data.shape
-    if length % 8:
-        raise ValueError(f"row length {length} not a multiple of 8")
-    nb = length // 8
-    words = _transpose8(_as_words(data)).view(torch.uint8)
-    return words.reshape(c, nb, 8).permute(0, 2, 1).reshape(c * 8, nb)
+    if length % w:
+        raise ValueError(f"row length {length} not a multiple of w={w}")
+    wb = w // 8
+    npk = length // w                   # packed bytes per plane (= words/8)
+    groups = data.reshape(c, npk, 8, wb).permute(0, 3, 1, 2).reshape(-1, 8)
+    planes = _transpose8(_as_words(groups)).view(torch.uint8)
+    return planes.reshape(c, wb, npk, 8).permute(0, 1, 3, 2).reshape(
+        c * w, npk)
 
 
-def planar_to_bytes(planes: torch.Tensor) -> torch.Tensor:
-    """(8c, nb) packed bit-planes -> (c, 8*nb) bytes (bytes_to_planar^-1)."""
-    c8, nb = planes.shape
-    c = c8 // 8
-    groups = planes.reshape(c, 8, nb).permute(0, 2, 1).contiguous()
-    return _transpose8(_as_words(groups)).view(torch.uint8).reshape(c, nb * 8)
+def planar_to_bytes(planes: torch.Tensor, w: int = 8) -> torch.Tensor:
+    """(c*w, npk) packed bit-planes -> (c, npk*w) bytes
+    (bytes_to_planar^-1)."""
+    cw, npk = planes.shape
+    c = cw // w
+    wb = w // 8
+    groups = planes.reshape(c, wb, 8, npk).permute(0, 1, 3, 2).reshape(-1, 8)
+    words = _transpose8(_as_words(groups)).view(torch.uint8)
+    return words.reshape(c, wb, npk, 8).permute(0, 2, 3, 1).reshape(
+        c, npk * w)
 
 
 def planar_matmul(bitmat: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
