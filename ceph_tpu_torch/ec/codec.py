@@ -38,19 +38,8 @@ from ceph_tpu_torch.ec.base import ErasureCode
 from ceph_tpu_torch.ec.interface import ECError
 from ceph_tpu_torch.ec.table_cache import DecodeTableCache
 from ceph_tpu_torch.ops import gf8, gf8_bytes_cuda, gfw
+from ceph_tpu_torch.utils.device import resolve_device
 from ceph_tpu_torch.utils.perf import KERNELS
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another.  Raises when CUDA is asked for (or defaulted to) and absent;
-    it never drops to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "ceph_tpu_torch runs on a CUDA device and none is available; "
-            "pass device='cpu' to run the plain PyTorch versions")
-    return dev
 
 
 def _record_kernel(kind: str, nbytes: int) -> None:

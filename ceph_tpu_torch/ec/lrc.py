@@ -14,8 +14,8 @@ Every layer is a codec of the registry on the LRC codec's device.
 and planar paths compose the walk into one matrix (encode: the flattened
 generator; decode: the pruned recovery matrix of one erasure pattern), so
 a planar encode or decode is one kernel B1 call on ``(r*8, s*8)``
-bit-matrices.  ``create_rule`` needs CRUSH's types and waits for the CRUSH
-slice of the port.
+bit-matrices.  ``create_rule`` writes the multi-step indep rule into a
+CRUSH map of the port's ``crush/types.py``.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from ceph_tpu_torch.ec.base import ErasureCode
 from ceph_tpu_torch.ec.codec import _to_device, resolve_device
 from ceph_tpu_torch.ec.interface import (ECError, ErasureCodeInterface,
                                          ErasureCodeProfile)
+from ceph_tpu_torch.crush import types as ct
 from ceph_tpu_torch.ops import gf8
 
 DEFAULT_KML = "-1"
@@ -564,12 +565,34 @@ class ErasureCodeLrc(ErasureCode):
     # -- CRUSH rule generation ----------------------------------------------
 
     def create_rule(self, name: str, cmap) -> int:
-        """The reference generates a multi-step indep rule from
-        ``rule_steps``; that needs CRUSH's rule types, which the port
-        brings with its CRUSH slice."""
-        raise NotImplementedError(
-            "ErasureCodeLrc.create_rule needs CRUSH's rule types, which "
-            "arrive with the CRUSH slice of the port")
+        """Generate the multi-step indep rule (reference create_rule):
+        SET_CHOOSELEAF_TRIES 5, SET_CHOOSE_TRIES 100, TAKE root, then one
+        CHOOSE/CHOOSELEAF_INDEP per rule_step, then EMIT.  ``cmap`` is a
+        host ``CrushMap``; returns the new rule's number."""
+        root = None
+        for item_id, item_name in cmap.item_names.items():
+            if item_name == self.rule_root:
+                root = item_id
+                break
+        if root is None:
+            raise ECError(errno.ENOENT,
+                          f"root item {self.rule_root} does not exist")
+        type_ids = {v: k for k, v in cmap.type_names.items()}
+        steps = [
+            (ct.RULE_SET_CHOOSELEAF_TRIES, 5, 0),
+            (ct.RULE_SET_CHOOSE_TRIES, 100, 0),
+            (ct.RULE_TAKE, root, 0),
+        ]
+        for s in self.rule_steps:
+            op = (ct.RULE_CHOOSELEAF_INDEP if s.op == "chooseleaf"
+                  else ct.RULE_CHOOSE_INDEP)
+            if s.type not in type_ids:
+                raise ECError(errno.EINVAL, f"unknown crush type {s.type}")
+            steps.append((op, s.n, type_ids[s.type]))
+        steps.append((ct.RULE_EMIT, 0, 0))
+        return cmap.add_rule(
+            ct.Rule(steps=steps, type=3, min_size=3,
+                    max_size=self.get_chunk_count()))
 
 
 def make_lrc(profile: ErasureCodeProfile, device=None):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's erasure-code hot paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's erasure-code hot paths and CRUSH placement on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -56,21 +56,40 @@ non-zero if any of them fails:
    - jerasure reed_sol_van k=8 m=4 at w=16 and w=32: codec encode/decode
      on the byte layout and the bitpack planes, and the byte-at-rest tick
      at ``StripeInfo(8, 4096)``;
-5. one launch: a torch.profiler trace of one cauchy ``encode_planar``
+5. placement (CRUSH and the OSDMap pipeline, torch ops, no hand-written
+   kernel) on bench_map's map, ``build_three_level(39, 16, 16)``: 9,984
+   OSDs, straw2, optimal tunables.  (a) ``OSDMap.pool_mapping`` of a
+   replicated size-3 pool of 1,048,576 PGs, then ``rebalance_diff``
+   against a copy with one host's 16 OSDs out and one more OSD down;
+   (b) ``pool_mapping`` of an LRC k4m2l3 pool of 65,536 PGs on the rule
+   ``ErasureCodeLrc.create_rule`` writes for ``crush-locality=rack``;
+   (c) ``TensorMapper.do_rule_batch`` of the replicated rule under a
+   balancer weight set on the root's 39 racks, 65,536 PGs.  Checked: 2,000
+   sampled PGs of each of (a), (b), (c) and of the diff against the
+   scalar chain, the first 65,536 PGs of (a) against
+   ``TensorMapper(device="cpu")``, distinct hosts in every PG, no scalar
+   fallback and no padded lanes;
+6. one launch: a torch.profiler trace of one cauchy ``encode_planar``
    call shows exactly one device kernel, B2's staged kernel, and no
    ``pack_blocks_kernel``;
-6. timing: CUDA-event medians of B1 and B2 and of their plain versions at
+7. timing: CUDA-event medians of B1 and B2 and of their plain versions at
    their headline shapes (L2 flushed before each launch), each kernel's
    share of its bound, a same-traffic yardstick (``torch.bitwise_xor`` of
    the two 8 MiB halves of a (64, 262144) uint8 tensor into 8 MiB), the
    encode step of each path split into its parts, and B1 at the w=16,
-   w=32 and SHEC encode shapes with 16 MiB of input planes.
+   w=32 and SHEC encode shapes with 16 MiB of input planes; then the
+   placement entry points' wall medians over 3 calls (``do_rule_batch``
+   of 1,000,000 PGs at the default chunk and in one chunk, with a
+   torch.profiler count of device kernels, kernel time, host syncs and
+   the device's idle share; ``pool_mapping``; ``rebalance_diff``;
+   ``bench_map``).
 
-Phases 2, 3 and each path of phase 4 are main paths: kernel launch counts
+Phases 2, 3, each path of phase 4 and phase 5 are main paths: kernel launch counts
 are set to 0 just before each and read just after, every kernel of the
 path must have launched, and every launch must have taken the staged
 path, except on the w=32 path, whose encode and 4-erasure decode take the
-kept one.  The last lines are the card's name and power limit, one JSON
+kept one; the placement path launches neither kernel and its
+``crush_map_*`` counters must show its five batched calls.  The last lines are the card's name and power limit, one JSON
 object describing each kernel (B1's launches summed over every main
 path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 prints no result and exits non-zero.
@@ -1075,6 +1094,276 @@ def phase_timing_b2(codec, data, card: str, yard_ms: float):
             "bound_by": bound_by}
 
 
+# -- placement: CRUSH and the OSDMap placement pipeline ----------------------
+
+# bench_map's map (ceph_tpu/crush/__init__.py): root -> 39 racks -> 16
+# hosts -> 16 osds, straw2 buckets and optimal tunables, 9,984 OSDs
+RACKS, HOSTS_PER_RACK, OSDS_PER_HOST = 39, 16, 16
+PLACEMENT_PGS = 1 << 20
+LRC_PGS = CHOOSE_ARGS_PGS = CPU_CHECK_PGS = 1 << 16
+BENCH_PGS = 1_000_000
+SAMPLE = 2000
+LRC_RULE_PROFILE = {**LRC_PROFILE, "crush-locality": "rack",
+                    "crush-failure-domain": "host"}
+
+
+def host_of(osd):
+    return osd // OSDS_PER_HOST
+
+
+def rack_of(osd):
+    return osd // (OSDS_PER_HOST * HOSTS_PER_RACK)
+
+
+def placement_maps():
+    """The replicated pool (a), the LRC pool (b) and the balancer weight
+    set (c) on bench_map's map, and the second map of the rebalance:
+    one host's 16 OSDs marked out and one further OSD marked down."""
+    import copy
+
+    from ceph_tpu_torch.crush.types import ChooseArg, build_three_level
+    from ceph_tpu_torch.ec import factory
+    from ceph_tpu_torch.osdmap.osdmap import (POOL_TYPE_ERASURE, OSDMap,
+                                              PGPool)
+
+    cmap, rule = build_three_level(RACKS, HOSTS_PER_RACK, OSDS_PER_HOST,
+                                   numrep=3)
+    lrc = factory(LRC_RULE_PROFILE)
+    lrc_rule = lrc.create_rule("lrc_k4m2l3", cmap)
+    root = min(cmap.buckets)
+    rack_w = cmap.buckets[root].weights
+    rng = np.random.default_rng(SEED + 20)
+    cmap.choose_args["balancer"] = {root: ChooseArg(weight_set=[
+        [int(w * f) for w, f in zip(rack_w, rng.uniform(0.5, 1.5, RACKS))]
+        for _ in range(3)])}
+    m = OSDMap(cmap)
+    m.add_pool(PGPool(pool_id=1, size=3, min_size=2, pg_num=PLACEMENT_PGS,
+                      pgp_num=PLACEMENT_PGS, crush_rule=rule, name="rbd"))
+    m.add_pool(PGPool(pool_id=2, type=POOL_TYPE_ERASURE,
+                      size=lrc.get_chunk_count(), min_size=5, pg_num=LRC_PGS,
+                      pgp_num=LRC_PGS, crush_rule=lrc_rule, name="lrc",
+                      ec_profile=dict(LRC_RULE_PROFILE)))
+    m2 = copy.deepcopy(m)
+    out_host = int(rng.integers(0, RACKS * HOSTS_PER_RACK))
+    for osd in range(out_host * OSDS_PER_HOST,
+                     (out_host + 1) * OSDS_PER_HOST):
+        m2.mark_out(osd)
+    down = int((out_host + 1) * OSDS_PER_HOST + rng.integers(0, 64))
+    m2.mark_down(down)
+    log(f"placement: {cmap.max_devices} OSDs, {len(cmap.buckets)} buckets "
+        f"(max depth {cmap.max_depth()}); pool 1 replicated size 3 "
+        f"pg_num {PLACEMENT_PGS} (rule {cmap.rules[rule].steps}); pool 2 "
+        f"LRC k4m2l3 size {lrc.get_chunk_count()} pg_num {LRC_PGS} (rule "
+        f"{cmap.rules[lrc_rule].steps}); rebalance: host {out_host} out, "
+        f"osd {down} down")
+    return m, m2, rule
+
+
+def phase_placement(m, m2, rule):
+    """The placement main path on the card: (a) the whole
+    replicated pool and its rebalance diff, (b) the LRC pool, (c) the
+    replicated rule under the balancer weight set."""
+    import torch
+
+    up, upp = m.pool_mapping(1)
+    moved, frac = m.rebalance_diff(1, m2)
+    lrc_up, lrc_upp = m.pool_mapping(2)
+    pps = m.pools[1].raw_pg_to_pps_batch(
+        np.arange(CHOOSE_ARGS_PGS, dtype=np.uint32))
+    weights = np.asarray(m.osd_weight, dtype=np.uint32)
+    ca_res, ca_len = m.tensor_mapper.do_rule_batch(
+        rule, pps, 3, weights, choose_args="balancer")
+    torch.cuda.synchronize()
+    if m.tensor_mapper.device.type != "cuda" or \
+            m2.tensor_mapper.device.type != "cuda":
+        raise AssertionError("placement did not run on the card")
+    log(f"placement: rebalance_diff moved {len(moved)} of {PLACEMENT_PGS} "
+        f"PGs ({frac:.6f})")
+    return {"up": up, "upp": upp, "moved": moved, "frac": frac,
+            "lrc_up": lrc_up, "lrc_upp": lrc_upp, "pps": pps,
+            "ca_res": ca_res.cpu().numpy(), "ca_len": ca_len.cpu().numpy()}
+
+
+def scalar_row(m, pool_id, seed):
+    """The full scalar chain's up set (padded as pool_mapping pads it) and
+    up primary for one PG."""
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.osdmap.osdmap import PGid
+
+    u, p, _a, _ap = m.pg_to_up_acting_osds(PGid(pool_id, seed))
+    return list(u) + [CRUSH_ITEM_NONE] * (m.pools[pool_id].size - len(u)), p
+
+
+def check_placement(m, m2, rule, got):
+    """Every check of the placement path, each a hard failure."""
+    from ceph_tpu_torch.crush import ScalarMapper
+    from ceph_tpu_torch.crush.mapper import TensorMapper
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 21)
+    for mp in (m, m2):
+        if mp.scalar_fallbacks:
+            raise AssertionError("a pool mapped on the scalar path")
+    up, lrc_up = got["up"], got["lrc_up"]
+    # (a) with every OSD up and in: three OSDs on three hosts per PG
+    if (up == CRUSH_ITEM_NONE).any():
+        raise AssertionError("a replicated PG has fewer than 3 OSDs")
+    hosts = np.sort(host_of(up), axis=1)
+    if ((hosts[:, 1:] == hosts[:, :-1]).any()):
+        raise AssertionError("a replicated PG has two OSDs on one host")
+    # (b) eight OSDs on eight hosts, four in each of two racks
+    if (lrc_up == CRUSH_ITEM_NONE).any():
+        raise AssertionError("an LRC PG has fewer than 8 OSDs")
+    lh = np.sort(host_of(lrc_up), axis=1)
+    racks = rack_of(lrc_up)
+    if (lh[:, 1:] == lh[:, :-1]).any() or \
+            (racks[:, :4] != racks[:, :1]).any() or \
+            (racks[:, 4:] != racks[:, 4:5]).any() or \
+            (racks[:, 0] == racks[:, 4]).any():
+        raise AssertionError("an LRC PG is not 4+4 hosts in two racks")
+    # (c) three OSDs on three hosts per PG
+    ca_res, ca_len = got["ca_res"], got["ca_len"]
+    ca_hosts = np.sort(host_of(ca_res), axis=1)
+    if (ca_len != 3).any() or (ca_hosts[:, 1:] == ca_hosts[:, :-1]).any():
+        raise AssertionError("a choose_args PG is short or shares a host")
+    # samples against the scalar chain
+    for label, pool_id, rows, prim in (("replicated", 1, up, got["upp"]),
+                                       ("LRC", 2, lrc_up, got["lrc_upp"])):
+        seeds = rng.choice(m.pools[pool_id].pg_num, SAMPLE, replace=False)
+        for s in seeds:
+            want, p = scalar_row(m, pool_id, int(s))
+            if rows[s].tolist() != want or int(prim[s]) != p:
+                raise AssertionError(
+                    f"{label} PG {s}: card {rows[s].tolist()} "
+                    f"{int(prim[s])}, scalar chain {want} {p}")
+    sm = ScalarMapper(m.crush)
+    weights = list(m.osd_weight)
+    for i in rng.choice(CHOOSE_ARGS_PGS, SAMPLE, replace=False):
+        want = sm.do_rule(rule, int(got["pps"][i]), 3, weights,
+                          choose_args="balancer")
+        if ca_res[i, :ca_len[i]].tolist() != want:
+            raise AssertionError(f"choose_args PG {i} differs from scalar")
+    moved = set(got["moved"].tolist())
+    for s in rng.choice(PLACEMENT_PGS, SAMPLE, replace=False):
+        s = int(s)
+        if (scalar_row(m, 1, s)[0] != scalar_row(m2, 1, s)[0]) != \
+                (s in moved):
+            raise AssertionError(f"rebalance_diff wrong about PG {s}")
+    # the first PGs against the port's mapper on the CPU
+    cpu = TensorMapper(m.crush, device="cpu")
+    card = m.tensor_mapper
+    weights = np.asarray(m.osd_weight, dtype=np.uint32)
+    pps = got["pps"][:CPU_CHECK_PGS]
+    c_res, c_len = cpu.do_rule_batch(rule, pps, 3, weights)
+    g_res, g_len = card.do_rule_batch(rule, pps, 3, weights)
+    if not (np.array_equal(c_res.numpy(), g_res.cpu().numpy())
+            and np.array_equal(c_len.numpy(), g_len.cpu().numpy())
+            and np.array_equal(c_res.numpy(), up[:CPU_CHECK_PGS])):
+        raise AssertionError("the card's placement differs from the CPU's")
+    log(f"placement: checks pass in {time.perf_counter() - t0:.3f} s: "
+        f"{SAMPLE} PGs each of the replicated pool, the LRC pool, the "
+        f"choose_args batch and the rebalance diff equal the scalar chain; "
+        f"the first {CPU_CHECK_PGS} PGs equal TensorMapper(device='cpu'); "
+        "every PG on distinct hosts (LRC: 4+4 in two racks)")
+
+
+def wall_median_s(fn, reps: int = 3) -> float:
+    """Median host wall time of ``reps`` calls, each bracketed by
+    ``torch.cuda.synchronize()``, after one warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def profile_call(fn):
+    """One call under torch.profiler (CUDA activity) and the CUDA sync
+    debug mode: (device kernels, summed kernel ms, DtoH copies, host syncs,
+    wall s of the profiled call, the four kernel names with the most
+    summed time as (name, launches, ms))."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        torch.cuda.set_sync_debug_mode("default")
+    n_sync = sum("synchronizing" in str(w.message) for w in syncs)
+    kernels, kernel_us, dtoh = 0, 0.0, 0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.name.startswith("Memcpy"):
+            dtoh += "DtoH" in e.name
+        elif not e.name.startswith("Memset"):
+            us = getattr(e, "device_time", None) or e.cuda_time
+            kernels += 1
+            kernel_us += us
+            n, tot = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, tot + us)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    return (kernels, kernel_us / 1e3, dtoh, n_sync, wall,
+            [(name[:90], n, us / 1e3) for name, (n, us) in top])
+
+
+def phase_placement_timing(m, m2, rule, card: str):
+    """Wall times of the placement entry points, and one do_rule_batch
+    call profiled at the default chunk and at one chunk for the batch."""
+    from ceph_tpu_torch.crush import bench_map
+    from ceph_tpu_torch.crush.mapper import TensorMapper
+
+    xs = np.arange(BENCH_PGS, dtype=np.uint32)
+    weights = np.full(m.crush.max_devices, 0x10000, dtype=np.uint32)
+    mappers = {"default chunk": m.tensor_mapper,
+               "one chunk": TensorMapper(m.crush, chunk=BENCH_PGS)}
+    out = {}
+    for label, mp in mappers.items():
+        s = wall_median_s(lambda: mp.do_rule_batch(rule, xs, 3, weights))
+        k, k_ms, dtoh, syncs, wall, top = profile_call(
+            lambda: mp.do_rule_batch(rule, xs, 3, weights))
+        out[label] = s
+        log(f"timing: placement do_rule_batch {BENCH_PGS} PGs, "
+            f"{label} ({mp.chunk} lanes): median {s * 1e3:.3f} ms = "
+            f"{BENCH_PGS / s:.0f} mappings/s; profiled call: {k} device "
+            f"kernels, {k_ms:.3f} ms summed kernel time, {dtoh} DtoH "
+            f"copies, {syncs} host syncs, {wall * 1e3:.3f} ms wall; device "
+            f"idle share {1 - k_ms / (s * 1e3):.4f} of the median call "
+            f"[{card}]")
+        for name, n, ms in top:
+            log(f"timing: placement {label} kernel {name}: {n} launches, "
+                f"{ms:.3f} ms ({ms / k_ms:.4f} of kernel time) [{card}]")
+    s = wall_median_s(lambda: m.pool_mapping(1))
+    log(f"timing: placement pool_mapping pool 1 ({PLACEMENT_PGS} PGs): "
+        f"median {s * 1e3:.3f} ms = {PLACEMENT_PGS / s:.0f} mappings/s "
+        f"[{card}]")
+    s = wall_median_s(lambda: m.rebalance_diff(1, m2))
+    log(f"timing: placement rebalance_diff pool 1 (two pool_mappings of "
+        f"{PLACEMENT_PGS} PGs): median {s * 1e3:.3f} ms = "
+        f"{2 * PLACEMENT_PGS / s:.0f} mappings/s [{card}]")
+    rate = bench_map(n_osds=RACKS * 256, n_pgs=BENCH_PGS, iters=3)
+    log(f"timing: placement bench_map(n_osds={RACKS * 256}, "
+        f"n_pgs={BENCH_PGS}) {rate:.0f} mappings/s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1195,6 +1484,25 @@ def main() -> int:
                 f"{gf8_cuda.kept_launches} times")
         b1_launches += gf8_cuda.launches
 
+    # the placement main path: CRUSH and the OSDMap pipeline,
+    # torch ops only (no hand-written kernel on this path)
+    pmap, pmap2, crush_rule = placement_maps()
+    reset_counts()
+    placed = phase_placement(pmap, pmap2, crush_rule)
+    torch.cuda.synchronize()
+    counts = KERNELS.dump()["device_kernels"]
+    log(f"main path (placement): {path_counts('B1', gf8_cuda)}, "
+        f"{path_counts('B2', gf8_bytes_cuda)}; counters "
+        f"{json.dumps(counts, sort_keys=True)}")
+    want = {"crush_map_calls": 5,
+            "crush_map_pgs": 3 * PLACEMENT_PGS + LRC_PGS + CHOOSE_ARGS_PGS,
+            "crush_map_pad_lanes": 0}
+    if any(counts.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"placement counters are not {want}")
+    if gf8_cuda.launches or gf8_bytes_cuda.launches:
+        raise AssertionError("the placement path launched an EC kernel")
+    check_placement(pmap, pmap2, crush_rule, placed)
+
     phase_one_launch(cauchy, cdata)
     yard_ms = phase_yardstick(card)
     t1 = phase_timing(isa, data, card, yard_ms)
@@ -1204,6 +1512,7 @@ def main() -> int:
          ("reed_sol_van k8m4 w=32 encode", wide[32][0].engine._enc_bitmat),
          ("SHEC k8m4c3 encode", shec.engine._enc_bitmat)], card)
     phase_clean_l2(isa, cauchy, card)
+    phase_placement_timing(pmap, pmap2, crush_rule, card)
     log(card)
     kernels = [{
         "name": "B1 planar GF(2) matmul",

@@ -176,7 +176,7 @@ def test_golden_has_three_isa_rows():
 
 
 @pytest.mark.parametrize("plugin", ["lrc", "shec"])
-def test_later_plugins_raise_enoent_naming_their_slice(plugin):
+def test_lrc_shec_registered_equal_reference(plugin):
     """The plugins that later slices brought are registered now: the
     profile Ceph's documentation gives for each builds a codec on the CPU
     that encodes like the reference's, and only an unknown plugin name
@@ -197,7 +197,7 @@ def test_later_plugins_raise_enoent_naming_their_slice(plugin):
     assert ei.value.errno == errno.ENOENT
 
 
-def test_wide_fields_not_ported_yet():
+def test_wide_engine_equals_reference():
     """The w=16 engine, built from a coding matrix as the reference's is:
     its bit-matrices and decode matrices, and its byte-layout encodes
     (single stripe and batch) and decode, equal the reference engine's."""

@@ -4,7 +4,7 @@
 - no source file of the package imports jax, ceph_tpu or google_crc32c;
 - an entry point asked for no device runs on CUDA, and raises where there
   is none instead of running on the CPU; an LRC codec's layers run on its
-  device;
+  device; so do CRUSH's batched mapper and an OSDMap's batched placement;
 - the B1 and B2 wrappers never answer a non-CPU tensor with their plain
   versions.
 """
@@ -41,6 +41,14 @@ def test_import_leaves_jax_and_reference_out():
         "import ceph_tpu_torch.ec.planar, ceph_tpu_torch.ops.gfw\n"
         "import ceph_tpu_torch.ops.gf8_bytes_cuda\n"
         "import ceph_tpu_torch.ec.lrc, ceph_tpu_torch.ec.shec\n"
+        "import ceph_tpu_torch.ops.jenkins, ceph_tpu_torch.crush\n"
+        "import ceph_tpu_torch.crush._ll_table, ceph_tpu_torch.crush.ln\n"
+        "import ceph_tpu_torch.crush.types, ceph_tpu_torch.crush.scalar\n"
+        "import ceph_tpu_torch.crush.mapper, ceph_tpu_torch.crush.compiler\n"
+        "import ceph_tpu_torch.crush.tester, ceph_tpu_torch.osdmap\n"
+        "import ceph_tpu_torch.osdmap.osdmap, ceph_tpu_torch.osdmap.balancer\n"
+        "from ceph_tpu_torch.osdmap.osdmap import build_simple_osdmap\n"
+        "build_simple_osdmap(device='cpu').pool_mapping(1)\n"
         "from ceph_tpu_torch.ec import factory\n"
         "factory({'plugin': 'jerasure', 'technique': 'cauchy_good',"
         " 'k': '4', 'm': '2'}, device='cpu')\n"
@@ -97,6 +105,38 @@ def test_factory_defaults_to_cuda_and_refuses_cpu_fallback(monkeypatch):
     lrc = factory({"plugin": "lrc", "k": "4", "m": "2", "l": "3"},
                   device="cpu")
     assert {layer.erasure_code.device.type for layer in lrc.layers} == {"cpu"}
+
+
+def test_placement_defaults_to_cuda_and_refuses_cpu_fallback(monkeypatch):
+    """CRUSH's batched mapper and an OSDMap's batched placement, asked for
+    no device, want CUDA and raise without it; an OSDMap still answers
+    through its scalar chain, which needs no device."""
+    from ceph_tpu_torch.crush.mapper import TensorMapper
+    from ceph_tpu_torch.crush.tester import CrushTester
+    from ceph_tpu_torch.crush.types import build_hierarchy
+    from ceph_tpu_torch.osdmap.osdmap import PGid, build_simple_osdmap
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cmap, rule = build_hierarchy(4, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TensorMapper(cmap)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CrushTester(cmap).test(rule, 3, 0, 15)
+    m = build_simple_osdmap(8, 2, 16)
+    assert len(m.pg_to_up_acting_osds(PGid(1, 0))[0]) == 3
+    with pytest.raises(RuntimeError, match="CUDA"):
+        m.tensor_mapper
+    with pytest.raises(RuntimeError, match="CUDA"):
+        m.pool_mapping(1)
+    assert m.scalar_fallbacks == 0
+    assert TensorMapper(cmap, device="cpu").device.type == "cpu"
+    assert build_simple_osdmap(8, 2, 16, device="cpu") \
+        .tensor_mapper.device.type == "cpu"
+    # with a card present the default is the card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.Tensor, "to", lambda self, *a, **k: self)
+    assert TensorMapper(cmap).device.type == "cuda"
+    assert build_simple_osdmap(8, 2, 16).tensor_mapper.device.type == "cuda"
 
 
 def test_lrc_layers_follow_the_codec_to_cuda(monkeypatch):

@@ -300,7 +300,7 @@ def test_jerasure_golden_rows_through_port(case):
 
 @pytest.mark.parametrize(
     "case", [c for c in _golden() if _wide_reed_sol(c)], ids=_golden_id)
-def test_wide_reed_sol_golden_rows_wait_for_gfw_slice(case):
+def test_wide_reed_sol_golden_rows_through_port(case):
     """reed_sol_* at w=16/32 encode through the word-layout device half
     of gfw: every chunk equals the C oracle's and the reference's, and a
     decode with two chunks lost gives the object back."""

@@ -5,7 +5,8 @@ Each scenario of ``tests/test_ec_lrc.py`` runs through the port on
 reference on JAX-CPU beside it.  On top: the flattened coding matrix, the
 three encodes (literal layer walk, batch, planar) agreeing, the composed
 batch and planar decodes with their pruned source sets, and
-``create_rule`` waiting for the CRUSH slice.  Inputs are seeded numpy;
+``create_rule``'s steps equal to the reference's, mapped through the
+port's batched CRUSH mapper.  Inputs are seeded numpy;
 every comparison is exact (tolerance 0, GF arithmetic).
 """
 
@@ -167,13 +168,84 @@ def test_rule_steps_kml():
         [("choose", "rack", 2), ("chooseleaf", "host", 4)]
 
 
-def test_create_rule_waits_for_crush_slice():
-    """The reference builds the rule with CRUSH's types; the port's
-    create_rule says which slice brings them."""
-    pc = _lrc({**KML, "crush-locality": "rack",
-               "crush-failure-domain": "host"})
-    with pytest.raises(NotImplementedError, match="CRUSH slice"):
-        pc.create_rule("lrcrule", None)
+def _rule_pair(profile, racks=3, hosts=4, osds=2):
+    """create_rule of the same profile into the same three-level map, in
+    both packages: (port map, port rule, reference map, reference rule)."""
+    from ceph_tpu.crush import types as jct
+    from ceph_tpu_torch.crush import types as pct
+
+    jc, pc = _pair(profile)
+    pmap, _ = pct.build_three_level(racks, hosts, osds)
+    jmap, _ = jct.build_three_level(racks, hosts, osds)
+    return (pmap, pc.create_rule("lrcrule", pmap),
+            jmap, jc.create_rule("lrcrule", jmap))
+
+
+def _rule_state(cmap, ruleno):
+    r = cmap.rules[ruleno]
+    return list(r.steps), r.ruleset, r.type, r.min_size, r.max_size
+
+
+def test_create_rule_equals_reference():
+    """k4m2l3 over racks (the example of erasure-code-lrc.rst): SET
+    tries, TAKE, CHOOSE_INDEP 2 racks, CHOOSELEAF_INDEP 4 hosts, EMIT, and
+    the rule maps through the port's batched mapper as the reference's
+    scalar mapper maps it."""
+    from ceph_tpu.crush import ScalarMapper as JScalarMapper
+    from ceph_tpu_torch.crush import types as pct
+    from ceph_tpu_torch.crush.mapper import TensorMapper
+
+    pmap, pr, jmap, jr = _rule_pair({**KML, "crush-locality": "rack",
+                                     "crush-failure-domain": "host"})
+    assert pr == jr == 1
+    assert _rule_state(pmap, pr) == _rule_state(jmap, jr)
+    assert [s[0] for s in pmap.rules[pr].steps] == [
+        pct.RULE_SET_CHOOSELEAF_TRIES, pct.RULE_SET_CHOOSE_TRIES,
+        pct.RULE_TAKE, pct.RULE_CHOOSE_INDEP, pct.RULE_CHOOSELEAF_INDEP,
+        pct.RULE_EMIT]
+    assert pmap.rules[pr].max_size == 8
+    weights = np.full(pmap.max_devices, 0x10000, dtype=np.uint32)
+    weights[[3, 10]] = 0
+    res, rlen = TensorMapper(pmap, device="cpu").do_rule_batch(
+        pr, np.arange(300, dtype=np.uint32), 8, weights)
+    sm = JScalarMapper(jmap)
+    for x in range(300):
+        assert [int(v) for v in res[x, : rlen[x]]] == \
+            sm.do_rule(jr, x, 8, list(weights))
+    assert set(rlen.tolist()) == {8}
+
+
+@pytest.mark.parametrize("profile", [
+    KML, {**KML, "crush-failure-domain": "osd"},
+    {**KML, "crush-root": "rack1"}, EXPLICIT],
+    ids=["kml", "osd-domain", "root", "explicit"])
+def test_create_rule_default_steps_equal_reference(profile):
+    pmap, pr, jmap, jr = _rule_pair(profile)
+    assert _rule_state(pmap, pr) == _rule_state(jmap, jr)
+    assert pmap.rules[pr].steps[2] == \
+        (1, -10 if "crush-root" in profile else -16, 0)
+
+
+def test_create_rule_crush_steps_json_and_errors_equal_reference():
+    profile = {**OVERRIDE,
+               "crush-steps": json.dumps([["choose", "rack", 2],
+                                          ["chooseleaf", "host", 4]])}
+    pmap, pr, jmap, jr = _rule_pair(profile)
+    assert _rule_state(pmap, pr) == _rule_state(jmap, jr)
+    assert pmap.rules[pr].steps[3:5] == [(3, 2, 2), (7, 4, 1)]
+    from ceph_tpu.crush import types as jct
+    from ceph_tpu_torch.crush import types as pct
+
+    for bad, code in (({"crush-root": "nowhere"}, errno.ENOENT),
+                      ({"crush-steps": json.dumps([["choose", "row", 2]])},
+                       errno.EINVAL)):
+        jc, pc = _pair({**OVERRIDE, **bad})
+        with pytest.raises(JECError) as jerr:
+            jc.create_rule("r", jct.build_three_level(2, 2, 2)[0])
+        with pytest.raises(ECError) as perr:
+            pc.create_rule("r", pct.build_three_level(2, 2, 2)[0])
+        assert perr.value.errno == jerr.value.errno == code
+        assert str(perr.value) == str(jerr.value)
 
 
 def test_crush_steps_json_profile():

@@ -112,7 +112,7 @@ def test_planes_cross_decode_between_packages():
     assert stripe.decode_planes_multi(pc, ps, blobs) == datas
 
 
-def test_unsolvable_pattern_raises_until_byte_decode_is_ported():
+def test_unsolvable_pattern_relayouts_then_raises():
     """A pattern the plane engine cannot solve relayouts to the byte
     decode (counted on the relayout seam); a code with no solution at all
     then raises there, as the reference does."""
