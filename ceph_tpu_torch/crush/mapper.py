@@ -226,12 +226,16 @@ class TensorMapper:
         """Descend intervening buckets until an item of type_ (or a dead
         end).  Returns (item, hit_empty).  Mirrors the retry_bucket descent
         of choose_firstn/indep (the same r at every level of a straw2
-        map)."""
+        map): the start bucket is always drawn from, whatever its own
+        type, and only the drawn items' types are tested
+        (``scalar.py:235-257``, ``:326-340``)."""
         cur = start
         hit_empty = torch.zeros_like(x, dtype=torch.bool)
-        for _ in range(self.max_depth):
+        for depth in range(self.max_depth):
             bno = (-1 - cur).clamp(0, self.nb - 1)
-            need = (cur < 0) & (self.btypes[bno] != type_)
+            need = cur < 0
+            if depth:
+                need = need & (self.btypes[bno] != type_)
             empty = need & (self.sizes[bno] == 0)
             hit_empty = hit_empty | empty
             nxt = self._straw2(bno, x, r, wpos)
@@ -381,6 +385,13 @@ class TensorMapper:
                 put, drop = col & success[:, None], col & bad[:, None]
                 out = torch.where(put, cur[:, None], out)
                 out = out.masked_fill(drop, CRUSH_ITEM_NONE)
+                if recurse_to_leaf:
+                    # a device drawn at type 0 is the slot's leaf before
+                    # its is_out test (``scalar.py:358-365``): a slot that
+                    # uses up its tries on out devices keeps the last one
+                    drawn = act & ~bad & ~coll & ~hit_empty & (cur >= 0)
+                    out2 = torch.where(col & drawn[:, None], cur[:, None],
+                                       out2)
                 out2 = torch.where(put, leaf[:, None], out2)
                 out2 = out2.masked_fill(drop, CRUSH_ITEM_NONE)
             ftotal = ftotal + lane_live.long()
@@ -441,6 +452,12 @@ class TensorMapper:
                 if numrep <= 0:
                     numrep += result_max
                     if numrep <= 0:
+                        # every input is skipped and the empty output
+                        # becomes the working vector (``scalar.py:439-444``,
+                        # ``:482-485``)
+                        w_items = none
+                        wsize = torch.zeros_like(wsize)
+                        wmax = 0
                         continue
                 o_items = none
                 osize = torch.zeros_like(wsize)
@@ -521,7 +538,8 @@ class TensorMapper:
             xs = xs.to(self.device, I64) & 0xFFFFFFFF
         else:
             xs = self._dev(np.asarray(xs).astype(np.int64) & 0xFFFFFFFF)
-        w = np.zeros(self.max_devices, dtype=np.int64)
+        # one entry at least: a map without devices still indexes it
+        w = np.zeros(max(self.max_devices, 1), dtype=np.int64)
         if isinstance(weights, torch.Tensor):
             weights = weights.cpu().numpy()
         weights = np.asarray(weights).astype(np.int64)[: self.max_devices]

@@ -49,6 +49,10 @@ class ErasureCodePluginRegistry:
         with self._lock:
             self._factories[name] = factory
 
+    def remove(self, name: str) -> None:
+        with self._lock:
+            self._factories.pop(name, None)
+
     def load(self, name: str):
         with self._lock:
             if name in self._factories:
@@ -59,6 +63,13 @@ class ErasureCodePluginRegistry:
                 device=None) -> ErasureCodeInterface:
         make = self.load(plugin)
         return make(dict(profile), device=device)
+
+    def preload(self, plugins) -> None:
+        """Load each named plugin now, raising ECError(ENOENT) for the
+        first that is not registered (reference ErasureCodePlugin.cc
+        preload)."""
+        for name in plugins:
+            self.load(name)
 
 
 def factory(profile: ErasureCodeProfile, device=None) -> ErasureCodeInterface:

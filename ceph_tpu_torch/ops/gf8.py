@@ -7,13 +7,13 @@ coding matrix expands to an (8r, 8k) bit-matrix and an encode is one
 GF(2) matmul (``expand_bitmatrix``).
 
 Host side (numpy, k x m bytes, never data): the log/antilog/product
-tables, ``gf_pow``, ``expand_bitmatrix``, ``gf_invert_matrix``,
-``gf_matmul_ref``.
+tables, ``gf_div``, ``gf_pow``, ``expand_bitmatrix``,
+``gf_invert_matrix``, ``gf_matmul_ref``.
 
 Device side (torch, on whatever device the tensors live):
 
 - the byte path ``unpack_bits``/``pack_bits``/``bitmatrix_matmul``/
-  ``encode_batch`` (also the plain version of kernel B2,
+  ``gf_matmul``/``encode_batch`` (also the plain version of kernel B2,
   ``gf8_bytes_cuda``);
 - the packed bit-planar layout ``bytes_to_planar``/``planar_to_bytes``;
 - ``planar_matmul``, which hands packed planes to the hand-written CUDA
@@ -29,6 +29,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ceph_tpu_torch.utils.device import resolve_device
+from ceph_tpu_torch.utils.perf import KERNELS
 
 # x^8 + x^4 + x^3 + x^2 + 1 — the polynomial shared by gf-complete (octal
 # 0435, jerasure galois.c) and ISA-L (erasure_code tables).
@@ -77,6 +80,10 @@ def gf_inv(a):
     if np.any(a == 0):
         raise ZeroDivisionError("gf_inv(0)")
     return GF_EXP[255 - GF_LOG[a]]
+
+
+def gf_div(a, b):
+    return gf_mul(a, gf_inv(b))
 
 
 def gf_pow(a, n):
@@ -189,6 +196,19 @@ def bitmatrix_matmul(bitmat, data: torch.Tensor,
         acc = torch.matmul(bm, bits).to(torch.int32) & 1
         out[:, c0:c0 + step] = pack_bits(acc, word_bytes)
     return out
+
+
+def gf_matmul(m, data, device=None) -> torch.Tensor:
+    """Convenience: GF matmul from a byte matrix (r, k) on (k, n) uint8
+    data through ``bitmatrix_matmul`` (host expand).  ``data`` as a
+    tensor runs on its device; as numpy on ``device`` (CUDA unless the
+    caller names the CPU)."""
+    if not isinstance(data, torch.Tensor):
+        data = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8))
+        data = data.to(resolve_device(device))
+    KERNELS.inc("gf8_matmul_calls")
+    KERNELS.inc("gf8_matmul_bytes", int(data.numel()))
+    return bitmatrix_matmul(expand_bitmatrix(m), data)
 
 
 def encode_batch(bitmat, data: torch.Tensor,

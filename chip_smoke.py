@@ -68,7 +68,23 @@ non-zero if any of them fails:
    sampled PGs of each of (a), (b), (c) and of the diff against the
    scalar chain, the first 65,536 PGs of (a) against
    ``TensorMapper(device="cpu")``, distinct hosts in every PG, no scalar
-   fallback and no padded lanes;
+   fallback and no padded lanes.  Then (d) ROADMAP §C1's repro on the
+   card (``build_hierarchy(2, 4)``, an erasure pool of size 7 and 16,384
+   PGs on ``chooseleaf indep 0 type 0`` with OSDs 1 and 5 out), every PG
+   against the scalar chain, and the same rule as a 65,536-PG erasure
+   pool of the 9,984-OSD map with one host out, 2,000 sampled PGs against
+   it (the scalar chain runs in a pool of spawned worker processes);
+   (e) one balancer round,
+   ``balance.scorer.calc_pg_upmaps_vectorized`` with the mgr's defaults
+   (``max_deviation_ratio=0.05``, ``max_moves=16``), on a replicated
+   size-3 pool of 65,536 PGs on that map: at least 1000 candidates
+   counted, at most 16 legal moves (one per PG, no shared failure
+   domain), a lower sum((count - target)^2) under a fresh
+   ``pool_mapping``, 1,000,000 sampled device scores equal to the plain
+   float64 formula bit for bit, and the round split into measurement,
+   enumeration, scoring, sort and pick on a fresh copy of the map; and
+   the card's candidates and moves equal to ``device="cpu"``'s on
+   ``build_three_level(4, 16, 16)`` with 8,192 PGs;
 6. one launch: a torch.profiler trace of one cauchy ``encode_planar``
    call shows exactly one device kernel, B2's staged kernel, and no
    ``pack_blocks_kernel``;
@@ -77,20 +93,25 @@ non-zero if any of them fails:
    share of its bound, a same-traffic yardstick (``torch.bitwise_xor`` of
    the two 8 MiB halves of a (64, 262144) uint8 tensor into 8 MiB), the
    encode step of each path split into its parts, and B1 at the w=16,
-   w=32 and SHEC encode shapes with 16 MiB of input planes; then the
+   w=32 and SHEC encode shapes with 16 MiB of input planes;
+   ``ops/profiling.device_loop_slope`` of B1 at its headline shape (each
+   L-step chain one CUDA graph) beside its CUDA-event median; then the
    placement entry points' wall medians over 3 calls (``do_rule_batch``
    of 1,000,000 PGs at the default chunk and in one chunk, with a
    torch.profiler count of device kernels, kernel time, host syncs and
    the device's idle share; ``pool_mapping``; ``rebalance_diff``;
    ``bench_map``).
 
-Phases 2, 3, each path of phase 4 and phase 5 are main paths: kernel launch counts
+Phases 2, 3, each path of phase 4, phase 5 (a)-(c), (d) and (e) are main
+paths: kernel launch counts
 are set to 0 just before each and read just after, every kernel of the
 path must have launched, and every launch must have taken the staged
 path, except on the w=32 path, whose encode and 4-erasure decode take the
 kept one; the placement path launches neither kernel and its
-``crush_map_*`` counters must show its five batched calls.  The last lines are the card's name and power limit, one JSON
-object describing each kernel (B1's launches summed over every main
+``crush_map_*`` counters must show its five batched calls, the C1 path's
+its two, and the scorer path's ``balance_candidates_scored`` the
+candidates the round reports.  The last lines are the card's name and
+power limit, one JSON object describing each kernel (B1's launches summed over every main
 path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 prints no result and exits non-zero.
 """
@@ -98,6 +119,7 @@ prints no result and exits non-zero.
 from __future__ import annotations
 
 import json
+import pickle
 import statistics
 import subprocess
 import sys
@@ -1130,6 +1152,7 @@ def placement_maps():
                                    numrep=3)
     lrc = factory(LRC_RULE_PROFILE)
     lrc_rule = lrc.create_rule("lrc_k4m2l3", cmap)
+    c1 = c1_rule(cmap)
     root = min(cmap.buckets)
     rack_w = cmap.buckets[root].weights
     rng = np.random.default_rng(SEED + 20)
@@ -1155,8 +1178,8 @@ def placement_maps():
         f"pg_num {PLACEMENT_PGS} (rule {cmap.rules[rule].steps}); pool 2 "
         f"LRC k4m2l3 size {lrc.get_chunk_count()} pg_num {LRC_PGS} (rule "
         f"{cmap.rules[lrc_rule].steps}); rebalance: host {out_host} out, "
-        f"osd {down} down")
-    return m, m2, rule
+        f"osd {down} down; C1 rule {cmap.rules[c1].steps}")
+    return m, m2, rule, c1
 
 
 def phase_placement(m, m2, rule):
@@ -1192,6 +1215,35 @@ def scalar_row(m, pool_id, seed):
 
     u, p, _a, _ap = m.pg_to_up_acting_osds(PGid(pool_id, seed))
     return list(u) + [CRUSH_ITEM_NONE] * (m.pools[pool_id].size - len(u)), p
+
+
+_SCALAR_MAP = None
+
+
+def _scalar_rows_init(blob: bytes) -> None:
+    global _SCALAR_MAP
+    _SCALAR_MAP = pickle.loads(blob)
+
+
+def _scalar_rows(args):
+    pool_id, seeds = args
+    return [scalar_row(_SCALAR_MAP, pool_id, s) for s in seeds]
+
+
+def scalar_rows(m, pool_id, seeds):
+    """``scalar_row`` for every seed, spread over the host's cores (the
+    scalar chain takes milliseconds a PG where tries run out) by a pool
+    of spawned workers that ends with the call."""
+    import multiprocessing
+    import os
+
+    n = max(1, min(8, os.cpu_count() or 1))
+    chunks = [c.tolist() for c in np.array_split(np.asarray(seeds), 4 * n)]
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(n, initializer=_scalar_rows_init,
+                  initargs=(pickle.dumps(m),)) as workers:
+        parts = workers.map(_scalar_rows, [(pool_id, c) for c in chunks])
+    return [row for part in parts for row in part]
 
 
 def check_placement(m, m2, rule, got):
@@ -1266,6 +1318,281 @@ def check_placement(m, m2, rule, got):
         f"choose_args batch and the rebalance diff equal the scalar chain; "
         f"the first {CPU_CHECK_PGS} PGs equal TensorMapper(device='cpu'); "
         "every PG on distinct hosts (LRC: 4+4 in two racks)")
+
+
+# C1 (a chooseleaf indep type-0 slot that runs out of tries keeps its
+# last out device): the OSDMap repro's shape, where it fires on every PG,
+# and the same rule as an erasure pool of the 9,984-OSD map
+C1_SMALL_PGS = 16_384
+C1_PGS = 1 << 16
+C1_SIZE = 7
+# the balancer scorer round: a replicated size-3 pool on the 9,984-OSD
+# map with the mgr's defaults (ceph_tpu/utils/config.py:233-238), and the
+# card against device="cpu" on a 1,024-OSD map
+SCORER_PGS = 1 << 16
+SCORER_MOVES = 16
+SCORER_DEVIATION = 0.05
+SCORER_SAMPLE = 1_000_000
+SMALL_SCORER_MAP = (4, 16, 16)
+SMALL_SCORER_PGS = 8192
+
+
+def c1_rule(cmap) -> int:
+    """ROADMAP §C1's rule: ``chooseleaf indep 0 type 0`` from the root,
+    with 5 leaf tries and 100 tries."""
+    from ceph_tpu_torch.crush import Rule
+    from ceph_tpu_torch.crush.types import (RULE_CHOOSELEAF_INDEP,
+                                            RULE_EMIT,
+                                            RULE_SET_CHOOSE_TRIES,
+                                            RULE_SET_CHOOSELEAF_TRIES,
+                                            RULE_TAKE)
+
+    return cmap.add_rule(Rule(steps=[
+        (RULE_SET_CHOOSELEAF_TRIES, 5, 0), (RULE_SET_CHOOSE_TRIES, 100, 0),
+        (RULE_TAKE, min(cmap.buckets), 0), (RULE_CHOOSELEAF_INDEP, 0, 0),
+        (RULE_EMIT, 0, 0)]))
+
+
+def phase_c1(m2, big_rule):
+    """C1 on the card: (a) ROADMAP's OSDMap repro at 16,384 PGs, every PG
+    against the scalar chain; (b) the same rule as an erasure pool of the
+    9,984-OSD map with one host out (``m2``), sampled PGs against the
+    scalar chain.  Returns the PGs of (a) and (b) with an out OSD in
+    their up set."""
+    import torch
+
+    from ceph_tpu_torch.osdmap.osdmap import (POOL_TYPE_ERASURE, PGPool,
+                                              build_simple_osdmap)
+
+    t0 = time.perf_counter()
+    small = build_simple_osdmap(8, 4, C1_SMALL_PGS, POOL_TYPE_ERASURE,
+                                C1_SIZE)
+    small.pools[1].crush_rule = c1_rule(small.crush)
+    small.mark_out(1)
+    small.mark_out(5)
+    up, upp = small.pool_mapping(1)
+    m2.add_pool(PGPool(pool_id=3, type=POOL_TYPE_ERASURE, size=C1_SIZE,
+                       min_size=5, pg_num=C1_PGS, pgp_num=C1_PGS,
+                       crush_rule=big_rule, name="c1"))
+    big_up, big_upp = m2.pool_mapping(3)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    for mp in (small, m2):
+        if mp.tensor_mapper.device.type != "cuda" or mp.scalar_fallbacks:
+            raise AssertionError("C1 placement did not run on the card")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 22)
+    for label, mp, pool_id, rows, prim, seeds in (
+            ("C1 repro", small, 1, up, upp, np.arange(C1_SMALL_PGS)),
+            ("C1 pool", m2, 3, big_up, big_upp,
+             rng.choice(C1_PGS, SAMPLE, replace=False))):
+        for s, (want, p) in zip(seeds, scalar_rows(mp, pool_id, seeds)):
+            if rows[s].tolist() != want or int(prim[s]) != p:
+                raise AssertionError(
+                    f"{label} PG {s}: card {rows[s].tolist()} "
+                    f"{int(prim[s])}, scalar chain {want} {p}")
+    out_small = int(np.isin(up, [1, 5]).any(axis=1).sum())
+    out_big = np.flatnonzero(np.asarray(m2.osd_weight) == 0)
+    out_big = int(np.isin(big_up, out_big).any(axis=1).sum())
+    log(f"C1: repro pool ({C1_SMALL_PGS} PGs, size {C1_SIZE}, 8 OSDs, "
+        f"OSDs 1 and 5 out): every PG equals the scalar chain, "
+        f"{out_small} PGs keep an out OSD; 9,984-OSD pool ({C1_PGS} PGs, "
+        f"one host out): {SAMPLE} sampled PGs equal the scalar chain, "
+        f"{out_big} PGs keep an out OSD; card {card_s:.3f} s, checks "
+        f"{time.perf_counter() - t0:.3f} s")
+    return out_small, out_big
+
+
+def energy(stats) -> float:
+    """The balance energy the scorer descends: sum((count - target)^2)."""
+    return float(np.sum((stats.counts - stats.target) ** 2))
+
+
+def scorer_map(cmap, rule, pg_num, device=None):
+    from ceph_tpu_torch.osdmap.osdmap import OSDMap, PGPool
+
+    m = OSDMap(cmap, device=device)
+    m.add_pool(PGPool(pool_id=4, size=3, min_size=2, pg_num=pg_num,
+                      pgp_num=pg_num, crush_rule=rule, name="balance"))
+    return m
+
+
+def phase_scorer(cmap, rule, reset_counts):
+    """The scorer round on the card: ``calc_pg_upmaps_vectorized`` with the
+    mgr's defaults on a replicated pool of the 9,984-OSD map, counted
+    from 0 just before and read just after.  Returns what the checks
+    need."""
+    import copy
+
+    import torch
+
+    from ceph_tpu_torch.balance import scorer
+    from ceph_tpu_torch.utils.perf import KERNELS
+
+    m = scorer_map(cmap, rule, SCORER_PGS)
+    split = copy.deepcopy(m)
+    before = scorer.deviation_stats(m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    changes, scored = scorer.calc_pg_upmaps_vectorized(
+        m, max_deviation_ratio=SCORER_DEVIATION, max_moves=SCORER_MOVES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = KERNELS.dump()["device_kernels"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"main path (balance scorer): counters "
+        f"{json.dumps(counts, sort_keys=True)}")
+    if m.tensor_mapper.device.type != "cuda":
+        raise AssertionError("the scorer round did not run on the card")
+    n = counts.get("balance_candidates_scored", 0)
+    if n < 1000 or n != scored or counts.get("balance_score_calls", 0) < 1:
+        raise AssertionError(f"the scorer round counted {n} candidates "
+                             f"({scored} reported)")
+    log(f"scorer: round on {cmap.max_devices} OSDs, pool of {SCORER_PGS} "
+        f"PGs: {n} candidates scored in "
+        f"{counts['balance_score_calls']} call(s), "
+        f"{sum(len(v) for v in changes.values())} moves, wall "
+        f"{wall * 1e3:.3f} ms, peak device memory {peak / 2**30:.3f} GiB")
+    return m, split, before, changes, scored
+
+
+def check_scorer(m, split, before, changes, rule, card: str):
+    """The scorer round's checks, and its split on a fresh copy of the
+    map: measurement, enumeration, scoring, sort and pick, each ended by
+    a synchronise; the device scores of sampled candidates against the
+    plain float64 formula, bit for bit."""
+    import torch
+
+    from ceph_tpu_torch.balance import scorer
+    from ceph_tpu_torch.osdmap.balancer import _failure_domains
+
+    moves = [(pg.seed, s, d) for pg, v in changes.items() for s, d in v]
+    if not 0 < len(moves) <= SCORER_MOVES or \
+            any(len(v) != 1 for v in changes.values()):
+        raise AssertionError(f"the round made {len(moves)} moves: {changes}")
+    dom = _failure_domains(m, rule)
+    up0 = before.placements[4]
+    for seed, src, dst in moves:
+        members = [int(o) for o in up0[seed]]
+        others = {dom[o] for o in members if o != src}
+        if src not in members or dst in members or dom[dst] in others:
+            raise AssertionError(f"illegal move of PG {seed}: {src}->{dst}"
+                                 f" with members {members}")
+    after = scorer.deviation_stats(m)
+    e0, e1 = energy(before), energy(after)
+    if not e1 < e0:
+        raise AssertionError(f"the moves did not lower the energy: {e0} "
+                             f"-> {e1}")
+    log(f"scorer: {len(moves)} legal moves, one per PG; sum((count - "
+        f"target)^2) {e0:.6f} -> {e1:.6f} under a fresh pool_mapping")
+
+    sync = torch.cuda.synchronize
+    times = {}
+
+    def timed(label, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[label] = time.perf_counter() - t0
+        return out
+
+    st = timed("measurement", lambda: scorer.deviation_stats(split))
+    domains = {4: _failure_domains(split, rule)}
+    cand = timed("enumeration", lambda: scorer.generate_candidates(
+        split, st, domains, SCORER_DEVIATION))
+    scores = timed("scoring", lambda: scorer.score_candidates(st, cand))
+    timed("sort alone", lambda: scorer.sorted_order(scores))
+    picked = timed("pick (its sort and walk)",
+                   lambda: scorer._pick_moves(st, cand, scores,
+                                              SCORER_MOVES))
+    if picked != [(pg.pool, pg.seed, s, d) for pg, v in changes.items()
+                  for s, d in v]:
+        raise AssertionError("the split run picked other moves")
+    if not isinstance(scores, torch.Tensor) or not scores.is_cuda:
+        raise AssertionError("the scores were not computed on the card")
+    n = len(cand)
+    rng = np.random.default_rng(SEED + 30)
+    idx = np.unique(rng.integers(0, n, SCORER_SAMPLE + SCORER_SAMPLE // 10))
+    if n >= SCORER_SAMPLE + SCORER_SAMPLE // 10:
+        idx = idx[:SCORER_SAMPLE]
+    it = torch.from_numpy(idx).cuda()
+    sample = scorer.CandidateSet(*(a[it].cpu().numpy()
+                                   for a in vars(cand).values()))
+    plain = scorer.score_candidates(st, sample, engine="numpy")
+    got = scores[it].cpu().numpy()
+    if not np.array_equal(got.view(np.int64), plain.view(np.int64)):
+        raise AssertionError("device scores differ from the plain formula")
+    total = sum(times.values()) - times["sort alone"]
+    log(f"scorer: {len(idx)} sampled device scores equal the plain float64 "
+        f"formula bit for bit; {n} candidates")
+    log("scorer: split of one round on a fresh copy: " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms" for k, v in times.items())
+        + f"; total {total * 1e3:.3f} ms [{card}]")
+
+
+def phase_scorer_small():
+    """The card's scorer against device="cpu" (the plain loops) on a
+    1,024-OSD map: equal candidate sets and equal changes."""
+    from ceph_tpu_torch.balance import scorer
+    from ceph_tpu_torch.crush.types import build_three_level
+    from ceph_tpu_torch.osdmap.balancer import _failure_domains
+
+    t0 = time.perf_counter()
+    cmap, rule = build_three_level(*SMALL_SCORER_MAP, numrep=3)
+    maps = [scorer_map(cmap, rule, SMALL_SCORER_PGS, device=d)
+            for d in (None, "cpu")]
+    cands, results = [], []
+    for m, engine in zip(maps, ("device", "numpy")):
+        st = scorer.deviation_stats(m)
+        cand = scorer.generate_candidates(
+            m, st, {4: _failure_domains(m, rule)}, SCORER_DEVIATION)
+        if isinstance(cand.src, np.ndarray) != (engine == "numpy"):
+            raise AssertionError(f"the map on {m.device} did not run the "
+                                 f"{engine} engine")
+        cands.append([np.asarray(a.cpu() if engine == "device" else a)
+                      for a in vars(cand).values()])
+        results.append(scorer.calc_pg_upmaps_vectorized(
+            m, max_deviation_ratio=SCORER_DEVIATION, max_moves=SCORER_MOVES))
+    if not all(np.array_equal(a, b) for a, b in zip(*cands)):
+        raise AssertionError("the card's candidates differ from the CPU's")
+    (ch, n), (cch, cn) = results
+    if ch != cch or n != cn or not ch:
+        raise AssertionError(f"the card's changes differ from the CPU's: "
+                             f"{ch} / {cch}")
+    log(f"scorer: {cmap.max_devices} OSDs, {SMALL_SCORER_PGS} PGs: card and "
+        f"device='cpu' give the same {len(cands[0][0])} candidates in the "
+        f"same order and the same {sum(len(v) for v in ch.values())} moves "
+        f"({n} candidates scored); {time.perf_counter() - t0:.3f} s")
+
+
+def phase_loop_slope(codec, kernel_ms: float, card: str):
+    """``device_loop_slope`` on B1's headline ISA shape (the L-step chain
+    as one CUDA graph), beside the CUDA-event median of phase_timing."""
+    import torch
+
+    from ceph_tpu_torch.ops import gf8_cuda
+    from ceph_tpu_torch.ops.profiling import device_loop_slope
+
+    rng = np.random.default_rng(SEED + 31)
+    bm = codec.engine._enc_bitmat
+    npk = 4096 * 512 // 8
+    planes = torch.from_numpy(rng.integers(
+        0, 256, (int(bm.shape[1]), npk), dtype=np.uint8)).cuda()
+
+    def feedback(d, out):
+        d[:1].bitwise_xor_(out[:1])
+        return d
+
+    med, best, worst = device_loop_slope(
+        lambda d: gf8_cuda.planar_matmul(bm, d), feedback, planes,
+        tag="b1_headline")
+    log(f"timing: B1 headline device_loop_slope (L1=300, L2=1200, CUDA "
+        f"graphs, L2 warm): median {med * 1e3:.6f} ms per step, best "
+        f"{best * 1e3:.6f}, worst {worst * 1e3:.6f}; CUDA-event median "
+        f"with the L2 flushed {kernel_ms:.6f} ms [{card}]")
 
 
 def wall_median_s(fn, reps: int = 3) -> float:
@@ -1486,7 +1813,7 @@ def main() -> int:
 
     # the placement main path: CRUSH and the OSDMap pipeline,
     # torch ops only (no hand-written kernel on this path)
-    pmap, pmap2, crush_rule = placement_maps()
+    pmap, pmap2, crush_rule, crush_c1 = placement_maps()
     reset_counts()
     placed = phase_placement(pmap, pmap2, crush_rule)
     torch.cuda.synchronize()
@@ -1503,9 +1830,34 @@ def main() -> int:
         raise AssertionError("the placement path launched an EC kernel")
     check_placement(pmap, pmap2, crush_rule, placed)
 
+    # the C1 path: ROADMAP's repro and a 9,984-OSD erasure pool on
+    # chooseleaf indep type 0, counted from 0 just before, read just after
+    reset_counts()
+    phase_c1(pmap2, crush_c1)
+    torch.cuda.synchronize()
+    counts = KERNELS.dump()["device_kernels"]
+    log(f"main path (C1): {path_counts('B1', gf8_cuda)}, "
+        f"{path_counts('B2', gf8_bytes_cuda)}; counters "
+        f"{json.dumps(counts, sort_keys=True)}")
+    want = {"crush_map_calls": 2, "crush_map_pgs": C1_SMALL_PGS + C1_PGS}
+    if any(counts.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"C1 counters are not {want}")
+    if gf8_cuda.launches or gf8_bytes_cuda.launches:
+        raise AssertionError("the C1 path launched an EC kernel")
+
+    # the balancer scorer path (its own counted window inside)
+    scored_map, split, before, changes, _ = phase_scorer(
+        pmap.crush, crush_rule, reset_counts)
+    if gf8_cuda.launches or gf8_bytes_cuda.launches:
+        raise AssertionError("the scorer path launched an EC kernel")
+    check_scorer(scored_map, split, before, changes, crush_rule, card)
+    del scored_map, split, before
+    phase_scorer_small()
+
     phase_one_launch(cauchy, cdata)
     yard_ms = phase_yardstick(card)
     t1 = phase_timing(isa, data, card, yard_ms)
+    phase_loop_slope(isa, t1["ms"], card)
     t2 = phase_timing_b2(cauchy, cdata, card, yard_ms)
     phase_timing_b1_shapes(
         [("reed_sol_van k8m4 w=16 encode", wide[16][0].engine._enc_bitmat),

@@ -47,8 +47,18 @@ def test_import_leaves_jax_and_reference_out():
         "import ceph_tpu_torch.crush.mapper, ceph_tpu_torch.crush.compiler\n"
         "import ceph_tpu_torch.crush.tester, ceph_tpu_torch.osdmap\n"
         "import ceph_tpu_torch.osdmap.osdmap, ceph_tpu_torch.osdmap.balancer\n"
+        "import ceph_tpu_torch.balance, ceph_tpu_torch.balance.scorer\n"
+        "import ceph_tpu_torch.ops.checksum, ceph_tpu_torch.ops.sloppy_crc\n"
+        "import ceph_tpu_torch.ops.profiling, ceph_tpu_torch.ec.registry\n"
+        "import ceph_tpu_torch.tools, ceph_tpu_torch.tools.crushtool\n"
+        "import ceph_tpu_torch.tools.osdmaptool\n"
         "from ceph_tpu_torch.osdmap.osdmap import build_simple_osdmap\n"
         "build_simple_osdmap(device='cpu').pool_mapping(1)\n"
+        "from ceph_tpu_torch.balance import calc_pg_upmaps_vectorized\n"
+        "calc_pg_upmaps_vectorized(build_simple_osdmap(device='cpu'),"
+        " engine='device')\n"
+        "from ceph_tpu_torch.ops.checksum import Checksummer\n"
+        "Checksummer('xxhash64', device='cpu').calculate(8, bytes(64))\n"
         "from ceph_tpu_torch.ec import factory\n"
         "factory({'plugin': 'jerasure', 'technique': 'cauchy_good',"
         " 'k': '4', 'm': '2'}, device='cpu')\n"
@@ -137,6 +147,40 @@ def test_placement_defaults_to_cuda_and_refuses_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "to", lambda self, *a, **k: self)
     assert TensorMapper(cmap).device.type == "cuda"
     assert build_simple_osdmap(8, 2, 16).tensor_mapper.device.type == "cuda"
+
+
+def test_scorer_tools_and_checksums_default_to_cuda(monkeypatch, tmp_path):
+    """The balancer scorer, the tools, the checksummer and gf_matmul,
+    asked for no device, want CUDA and raise without it."""
+    import json
+    import pickle
+
+    from ceph_tpu_torch.balance import calc_pg_upmaps_vectorized
+    from ceph_tpu_torch.crush.types import build_hierarchy
+    from ceph_tpu_torch.ops import checksum, gf8
+    from ceph_tpu_torch.osdmap.osdmap import build_simple_osdmap
+    from ceph_tpu_torch.tools import crushtool, osdmaptool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calc_pg_upmaps_vectorized(build_simple_osdmap(16, 4, 64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checksum.Checksummer("crc32c")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gf8.gf_matmul(np.ones((1, 1), np.uint8), np.ones((1, 4), np.uint8))
+    cmap, _ = build_hierarchy(4, 2)
+    mapf = tmp_path / "map.json"
+    mapf.write_text(json.dumps(crushtool.map_to_json(cmap)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crushtool.main(["-i", str(mapf), "--test"])
+    osdf = tmp_path / "osdmap.bin"
+    osdf.write_bytes(pickle.dumps(build_simple_osdmap(8, 2, 16)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        osdmaptool.main([str(osdf), "--test-map-pgs"])
+    # the plain engine runs only where the caller names the CPU
+    changes, scored = calc_pg_upmaps_vectorized(
+        build_simple_osdmap(16, 4, 64, device="cpu"))
+    assert scored > 0
 
 
 def test_lrc_layers_follow_the_codec_to_cuda(monkeypatch):
