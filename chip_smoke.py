@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's erasure-code hot paths and CRUSH placement on one CUDA card.
+"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement and device mesh on the CUDA cards.
 
 Run from the repository root with no arguments:
 
@@ -85,10 +85,20 @@ non-zero if any of them fails:
    enumeration, scoring, sort and pick on a fresh copy of the map; and
    the card's candidates and moves equal to ``device="cpu"``'s on
    ``build_three_level(4, 16, 16)`` with 8,192 PGs;
-6. one launch: a torch.profiler trace of one cauchy ``encode_planar``
+6. the mesh (``ceph_tpu_torch/parallel/``, torch ops, no hand-written
+   kernel): one controller over every visible card when there are two or
+   more, else eight slots of ``cuda:0`` shaped ``(2, 4)``.
+   ``MeshECEngine`` on ISA k8m4, 4096 stripes x 8 x 512 B: encode, the
+   nine erasure patterns of ``tests/test_parallel.py`` and an RMW of
+   columns [128, 384) against the single-device codec, byte for byte;
+   ``distributed_ec_step`` at the same shape (0 mismatches);
+   ``MeshCodecAdapter`` on 4095 stripes (padded to the data axis); and
+   ``crush_batch_sharded`` of the 1,000,000 ``BENCH_PGS`` on the
+   9,984-OSD map against ``do_rule_batch``;
+7. one launch: a torch.profiler trace of one cauchy ``encode_planar``
    call shows exactly one device kernel, B2's staged kernel, and no
    ``pack_blocks_kernel``;
-7. timing: CUDA-event medians of B1 and B2 and of their plain versions at
+8. timing: CUDA-event medians of B1 and B2 and of their plain versions at
    their headline shapes (L2 flushed before each launch), each kernel's
    share of its bound, a same-traffic yardstick (``torch.bitwise_xor`` of
    the two 8 MiB halves of a (64, 262144) uint8 tensor into 8 MiB), the
@@ -100,17 +110,21 @@ non-zero if any of them fails:
    of 1,000,000 PGs at the default chunk and in one chunk, with a
    torch.profiler count of device kernels, kernel time, host syncs and
    the device's idle share; ``pool_mapping``; ``rebalance_diff``;
-   ``bench_map``).
+   ``bench_map``); and the mesh encode and one-erasure decode against the
+   single-device codec (CUDA events on every device of the mesh, and wall
+   medians), and the wall medians of ``crush_batch_sharded`` and
+   ``do_rule_batch`` on the 1,000,000 PGs.
 
-Phases 2, 3, each path of phase 4, phase 5 (a)-(c), (d) and (e) are main
-paths: kernel launch counts
+Phases 2, 3, each path of phase 4, phase 5 (a)-(c), (d), (e) and phase 6
+are main paths: kernel launch counts
 are set to 0 just before each and read just after, every kernel of the
 path must have launched, and every launch must have taken the staged
 path, except on the w=32 path, whose encode and 4-erasure decode take the
 kept one; the placement path launches neither kernel and its
 ``crush_map_*`` counters must show its five batched calls, the C1 path's
-its two, and the scorer path's ``balance_candidates_scored`` the
-candidates the round reports.  The last lines are the card's name and
+its two, the scorer path's ``balance_candidates_scored`` the
+candidates the round reports, and the mesh path launches neither kernel
+and maps one shard per mesh slot.  The last lines are the card's name and
 power limit, one JSON object describing each kernel (B1's launches summed over every main
 path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 prints no result and exits non-zero.
@@ -1568,6 +1582,201 @@ def phase_scorer_small():
         f"({n} candidates scored); {time.perf_counter() - t0:.3f} s")
 
 
+# -------------------------------------------------------------------- mesh
+
+MESH_STRIPES, MESH_CHUNK = 4096, 512
+MESH_PATTERNS = [(0,), (5,), (8,), (11,), (0, 11), (2, 3), (9, 10),
+                 (0, 4, 8), (1, 2, 3, 9)]
+MESH_RMW_START, MESH_RMW_WIDTH = 128, 256
+
+
+def mesh_case():
+    """Every visible card when there are two or more; otherwise eight
+    slots of ``cuda:0`` (a ``(2, 4)`` mesh whose copies between slots are
+    no-ops, so the split and gather code still runs on the card).
+    Returns the ``devices=`` argument for ``make_mesh`` (None: all cards)
+    and a description of the case."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return None, f"{n} cards, one slot each"
+    return ["cuda:0"] * 8, "one card: 8 slots of cuda:0"
+
+
+def sync_all(devices) -> None:
+    import torch
+
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
+def mesh_median_ms(fn, devices, reps: int, spin=SPIN_CYCLES) -> float:
+    """``cuda_median_ms`` over several cards: a spin and a start event on
+    every device before the call, an end event on each after it; a call
+    takes the longest of its devices' start-to-end times."""
+    import torch
+
+    fn()
+    sync_all(devices)
+    times = []
+    for _ in range(reps):
+        starts = []
+        for d in devices:
+            with torch.cuda.device(d):
+                torch.cuda._sleep(spin)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                starts.append(ev)
+        fn()
+        ends = []
+        for d in devices:
+            with torch.cuda.device(d):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                ends.append(ev)
+        for ev in ends:
+            ev.synchronize()
+        times.append(max(s.elapsed_time(e) for s, e in zip(starts, ends)))
+    return statistics.median(times)
+
+
+def mesh_reference(m, rule):
+    """The single-device placement of the 1,000,000 ``BENCH_PGS`` the
+    sharded placement is held to (computed outside the mesh's counted
+    window)."""
+    xs = np.arange(BENCH_PGS, dtype=np.uint32)
+    weights = np.asarray(m.osd_weight, dtype=np.uint32)
+    res, lens = m.tensor_mapper.do_rule_batch(rule, xs, 3, weights)
+    return xs, weights, res, lens
+
+
+def phase_mesh(isa, m, rule, ref):
+    """The mesh main path on the card, at full width: the sharded EC
+    engine (ISA k8m4, 4096 stripes x 8 x 512 B) against the single-device
+    codec, ``distributed_ec_step``, the codec adapter on 4095 stripes and
+    the sharded placement of 1,000,000 PGs against ``do_rule_batch``."""
+    import torch
+
+    from ceph_tpu_torch.parallel import (MeshECEngine, crush_batch_sharded,
+                                         distributed_ec_step, make_mesh)
+    from ceph_tpu_torch.parallel.engine import MeshCodecAdapter
+
+    t0 = time.perf_counter()
+    devices, case = mesh_case()
+    mesh = make_mesh(devices=devices)
+    distinct = mesh.distinct()
+    if any(d.type != "cuda" for d in distinct):
+        raise AssertionError(f"the mesh is not on the card: {mesh}")
+    log(f"mesh: {torch.cuda.device_count()} CUDA device(s) visible; {case}; "
+        f"mesh {mesh.shape} over {[str(d) for d in distinct]}")
+    rng = np.random.default_rng(SEED + 30)
+    eng = MeshECEngine(mesh, 8, 4, isa.engine.coding)
+    data = torch.from_numpy(rng.integers(
+        0, 256, (MESH_STRIPES, 8, MESH_CHUNK), dtype=np.uint8)).cuda()
+    parity = eng.encode_batch(data)
+    single = isa.encode_batch(data)
+    if not parity.is_cuda or not torch.equal(parity, single):
+        raise AssertionError("mesh encode differs from the codec's")
+    chunks = torch.cat([data, single], dim=1)
+    for er in MESH_PATTERNS:
+        got = eng.decode_batch(er, chunks)
+        if not torch.equal(got, isa.decode_batch(er, chunks)) or \
+                not torch.equal(got, chunks[:, list(er)]):
+            raise AssertionError(f"mesh decode {er} differs from the codec's")
+    update = torch.from_numpy(rng.integers(
+        0, 256, (MESH_STRIPES, 8, MESH_RMW_WIDTH), dtype=np.uint8)).cuda()
+    got = eng.rmw_batch(chunks, update, MESH_RMW_START)
+    patched = data.clone()
+    patched[:, :, MESH_RMW_START:MESH_RMW_START + MESH_RMW_WIDTH] = update
+    if not torch.equal(got, torch.cat([patched, isa.encode_batch(patched)],
+                                      dim=1)):
+        raise AssertionError("mesh RMW differs from a full re-encode")
+    step, (placed,) = distributed_ec_step(mesh, 8, 4, MESH_STRIPES,
+                                          MESH_CHUNK)
+    mismatches, step_chunks = step(placed)
+    example = eng.gather_stripes(placed)
+    if int(mismatches) != 0 or not torch.equal(
+            step_chunks, torch.cat([example, isa.encode_batch(example)], 1)):
+        raise AssertionError(
+            f"distributed_ec_step: {int(mismatches)} mismatches")
+    # the adapter pads 4095 stripes to the data axis (two rows or more)
+    amesh = make_mesh(devices=devices, shard_axis=1 if devices is None
+                      else None)
+    adapter = MeshCodecAdapter(isa, amesh)
+    odd = data[:MESH_STRIPES - 1]
+    pad = (-odd.shape[0]) % amesh.shape["data"]
+    if not torch.equal(adapter.encode_batch(odd), isa.encode_batch(odd)) or \
+            not torch.equal(adapter.decode_batch((3, 10), chunks[:-1]),
+                            chunks[:-1, [3, 10]]):
+        raise AssertionError("the mesh codec adapter differs from the codec")
+    xs, weights, sres, slens = ref
+    res, lens = crush_batch_sharded(mesh, m.tensor_mapper, rule, xs, 3,
+                                    weights)
+    if not torch.equal(res, sres) or not torch.equal(lens, slens):
+        raise AssertionError("crush_batch_sharded differs from do_rule_batch")
+    sync_all(distinct)
+    log(f"mesh: encode, 9 erasure patterns, RMW at columns "
+        f"[{MESH_RMW_START}, {MESH_RMW_START + MESH_RMW_WIDTH}), "
+        f"distributed_ec_step (0 mismatches) on {MESH_STRIPES} x 8 x "
+        f"{MESH_CHUNK} B equal the single-device codec byte for byte; the "
+        f"adapter on mesh {amesh.shape} pads {MESH_STRIPES - 1} stripes by "
+        f"{pad} and equals the codec; crush_batch_sharded of {len(xs)} PGs "
+        f"over {mesh.devices.size} slots equals do_rule_batch; "
+        f"{time.perf_counter() - t0:.3f} s")
+    return {"mesh": mesh, "eng": eng, "data": data, "chunks": chunks,
+            "slots": mesh.devices.size}
+
+
+def phase_mesh_timing(isa, m, rule, ref, out, single_s: float, card: str):
+    """CUDA-event medians of the mesh encode and a one-erasure decode
+    against the single-device codec on the same batch, one profiled call
+    of each (device kernels, kernel time, idle share), and the wall
+    median of the sharded placement beside ``single_s``, the placement
+    timing's median of ``do_rule_batch`` on the same PGs and weights."""
+    from ceph_tpu_torch.parallel import crush_batch_sharded
+
+    mesh, eng, data, chunks = out["mesh"], out["eng"], out["data"], \
+        out["chunks"]
+    devs = mesh.distinct()
+    nbytes = data.numel()
+    rows = [("encode", lambda: eng.encode_batch(data),
+             lambda: isa.encode_batch(data)),
+            ("decode (0,)", lambda: eng.decode_batch((0,), chunks),
+             lambda: isa.decode_batch((0,), chunks))]
+    for label, mesh_fn, single_fn in rows:
+        ms = mesh_median_ms(mesh_fn, devs, 20)
+        single_ms = cuda_median_ms(single_fn, 20)
+        wall = wall_median_s(mesh_fn, 5, devs)
+        single_wall = wall_median_s(single_fn, 5)
+        log(f"timing: mesh {label} ISA k8m4 {MESH_STRIPES} x 8 x "
+            f"{MESH_CHUNK} B on mesh {mesh.shape} ({len(devs)} device(s)): "
+            f"CUDA-event median {ms:.6f} ms ({nbytes / ms / 1e6:.3f} GB/s "
+            f"of data), single-device codec {single_ms:.6f} ms "
+            f"({nbytes / single_ms / 1e6:.3f} GB/s); wall medians "
+            f"{wall * 1e3:.3f} ms and {single_wall * 1e3:.3f} ms [{card}]")
+        for who, fn, w in (("mesh", mesh_fn, wall),
+                           ("single-device", single_fn, single_wall)):
+            k, k_ms, dtoh, syncs, pwall, _top = profile_call(fn)
+            log(f"timing: mesh {label}, {who} call profiled: {k} device "
+                f"kernels, {k_ms:.3f} ms summed kernel time, {dtoh} DtoH "
+                f"copies, {syncs} host syncs, {pwall * 1e3:.3f} ms wall; "
+                f"device idle share {1 - k_ms / (w * 1e3 * len(devs)):.4f} "
+                f"of the wall median summed over {len(devs)} device(s) "
+                f"[{card}]")
+    xs, weights, _, _ = ref
+    if not (weights == 0x10000).all():
+        raise AssertionError("the placement timing ran with other weights")
+    s = wall_median_s(
+        lambda: crush_batch_sharded(mesh, m.tensor_mapper, rule, xs, 3,
+                                    weights), 2, devs)
+    log(f"timing: mesh crush_batch_sharded {len(xs)} PGs over "
+        f"{mesh.devices.size} slots on {len(devs)} device(s): wall median "
+        f"{s * 1e3:.3f} ms = {len(xs) / s:.0f} mappings/s; do_rule_batch "
+        f"{single_s * 1e3:.3f} ms = {len(xs) / single_s:.0f} mappings/s "
+        f"[{card}]")
+
+
 def phase_loop_slope(codec, kernel_ms: float, card: str):
     """``device_loop_slope`` on B1's headline ISA shape (the L-step chain
     as one CUDA graph), beside the CUDA-event median of phase_timing."""
@@ -1595,18 +1804,17 @@ def phase_loop_slope(codec, kernel_ms: float, card: str):
         f"with the L2 flushed {kernel_ms:.6f} ms [{card}]")
 
 
-def wall_median_s(fn, reps: int = 3) -> float:
+def wall_median_s(fn, reps: int = 3, devices=(None,)) -> float:
     """Median host wall time of ``reps`` calls, each bracketed by
-    ``torch.cuda.synchronize()``, after one warm-up call."""
-    import torch
-
+    ``torch.cuda.synchronize()`` of every device in ``devices`` (default:
+    the current one), after one warm-up call."""
     fn()
     times = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        sync_all(devices)
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync_all(devices)
         times.append(time.perf_counter() - t0)
     return statistics.median(times)
 
@@ -1691,11 +1899,23 @@ def phase_placement_timing(m, m2, rule, card: str):
     return out
 
 
+def card_name() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip()
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
         return 2
     from ceph_tpu_torch.ec import factory
     from ceph_tpu_torch.ops import _build, gf8_bytes_cuda, gf8_cuda
@@ -1713,11 +1933,7 @@ def main() -> int:
                           "pack" if "pack_blocks" in line else "kept")
             elif "registers" in line or "spill" in line:
                 log(f"build: {stem} {kernel} kernel: {line.strip()}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip()
+    card = card_name()
     for name, mod in (("B1", gf8_cuda), ("B2", gf8_bytes_cuda)):
         ctas, threads, smem = mod.staged_config()
         log(f"build: {name} staged kernel: persistent grid of {ctas} CTAs x "
@@ -1854,6 +2070,24 @@ def main() -> int:
     del scored_map, split, before
     phase_scorer_small()
 
+    # the mesh path: the sharded EC engine and the sharded placement over
+    # every visible card (or eight slots of one), counted from 0 just
+    # before and read just after; the single-device placement it is held
+    # to runs first, outside the window
+    mesh_ref = mesh_reference(pmap, crush_rule)
+    reset_counts()
+    mesh_out = phase_mesh(isa, pmap, crush_rule, mesh_ref)
+    sync_all(mesh_out["mesh"].distinct())
+    counts = KERNELS.dump()["device_kernels"]
+    log(f"main path (mesh): {path_counts('B1', gf8_cuda)}, "
+        f"{path_counts('B2', gf8_bytes_cuda)}; counters "
+        f"{json.dumps(counts, sort_keys=True)}")
+    if gf8_cuda.launches or gf8_bytes_cuda.launches:
+        raise AssertionError("the mesh path launched an EC kernel")
+    if counts.get("crush_map_calls", 0) != mesh_out["slots"]:
+        raise AssertionError("the sharded placement did not map one shard "
+                             "per mesh slot")
+
     phase_one_launch(cauchy, cdata)
     yard_ms = phase_yardstick(card)
     t1 = phase_timing(isa, data, card, yard_ms)
@@ -1864,7 +2098,9 @@ def main() -> int:
          ("reed_sol_van k8m4 w=32 encode", wide[32][0].engine._enc_bitmat),
          ("SHEC k8m4c3 encode", shec.engine._enc_bitmat)], card)
     phase_clean_l2(isa, cauchy, card)
-    phase_placement_timing(pmap, pmap2, crush_rule, card)
+    placement_s = phase_placement_timing(pmap, pmap2, crush_rule, card)
+    phase_mesh_timing(isa, pmap, crush_rule, mesh_ref, mesh_out,
+                      placement_s["default chunk"], card)
     log(card)
     kernels = [{
         "name": "B1 planar GF(2) matmul",

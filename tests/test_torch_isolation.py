@@ -4,7 +4,8 @@
 - no source file of the package imports jax, ceph_tpu or google_crc32c;
 - an entry point asked for no device runs on CUDA, and raises where there
   is none instead of running on the CPU; an LRC codec's layers run on its
-  device; so do CRUSH's batched mapper and an OSDMap's batched placement;
+  device; so do CRUSH's batched mapper, an OSDMap's batched placement and
+  the device mesh with its EC engine;
 - the B1 and B2 wrappers never answer a non-CPU tensor with their plain
   versions.
 """
@@ -52,6 +53,26 @@ def test_import_leaves_jax_and_reference_out():
         "import ceph_tpu_torch.ops.profiling, ceph_tpu_torch.ec.registry\n"
         "import ceph_tpu_torch.tools, ceph_tpu_torch.tools.crushtool\n"
         "import ceph_tpu_torch.tools.osdmaptool\n"
+        "import ceph_tpu_torch.parallel, ceph_tpu_torch.parallel.mesh\n"
+        "import ceph_tpu_torch.parallel.engine, ceph_tpu_torch.utils\n"
+        "import ceph_tpu_torch.utils.perf, ceph_tpu_torch.utils.config\n"
+        "import ceph_tpu_torch.utils.backoff, ceph_tpu_torch.utils.deadline\n"
+        "import ceph_tpu_torch.utils.tasks, ceph_tpu_torch.utils.compressor\n"
+        "import ceph_tpu_torch.utils.lockdep, ceph_tpu_torch.utils.schedfuzz\n"
+        "import ceph_tpu_torch.utils.admin_socket, ceph_tpu_torch.chaos\n"
+        "import ceph_tpu_torch.chaos.rng, ceph_tpu_torch.chaos.counters\n"
+        "import ceph_tpu_torch.cluster, ceph_tpu_torch.cluster.auth\n"
+        "import ceph_tpu_torch.trace, ceph_tpu_torch.trace.span\n"
+        "import ceph_tpu_torch.trace.attribution, ceph_tpu_torch.trace.flight\n"
+        "import ceph_tpu_torch.trace.loopmon, ceph_tpu_torch.trace.perfetto\n"
+        "import ceph_tpu_torch.trace.postmortem\n"
+        "from ceph_tpu_torch.parallel import make_mesh, distributed_ec_step\n"
+        "step, args = distributed_ec_step(make_mesh(devices=['cpu'] * 8),"
+        " 8, 4, 8, 64)\n"
+        "assert int(step(*args)[0]) == 0\n"
+        "from ceph_tpu_torch.utils import Config\n"
+        "Config(auth_supported='cephx', auth_shared_secret='k')"
+        ".cephx_context('osd.0').ensure_ticket()\n"
         "from ceph_tpu_torch.osdmap.osdmap import build_simple_osdmap\n"
         "build_simple_osdmap(device='cpu').pool_mapping(1)\n"
         "from ceph_tpu_torch.balance import calc_pg_upmaps_vectorized\n"
@@ -260,3 +281,39 @@ def test_kernel_sources_and_build_flags_target_hopper():
     text = (PKG / "csrc" / "gf8_bytes.cu").read_text()
     assert 'extern "C" int gf8_bytes_matmul' in text
     assert "gf8_pallas.py::_kernel" in text
+
+
+def test_mesh_defaults_to_cuda_and_refuses_cpu_fallback(monkeypatch):
+    """``make_mesh``, ``MeshECEngine``, ``mesh_for_codec`` and
+    ``wrap_codec_for_mesh``, asked for no device, want CUDA and raise
+    without it; only named devices give a CPU mesh."""
+    from ceph_tpu_torch.ec import matrices
+    from ceph_tpu_torch.parallel import MeshECEngine, make_mesh
+    from ceph_tpu_torch.parallel.engine import (mesh_for_codec,
+                                                wrap_codec_for_mesh)
+
+    codec = factory({"plugin": "isa", "k": "4", "m": "2"}, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MeshECEngine(None, 4, 2, matrices.isa_rs_matrix(4, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh_for_codec(codec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wrap_codec_for_mesh(codec, 2)
+    assert {d.type for d in make_mesh(devices=["cpu"] * 4).devices.flat} \
+        == {"cpu"}
+    # with cards present the default mesh is one slot per card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    mesh = make_mesh()
+    assert mesh.shape == {"data": 1, "shard": 4}
+    assert [str(d) for d in mesh.devices.flat] == \
+        ["cuda:0", "cuda:1", "cuda:2", "cuda:3"]
+    eng = MeshECEngine(None, 4, 2, matrices.isa_rs_matrix(4, 2))
+    assert eng.mesh == mesh
+    with pytest.raises(ValueError, match="need 8 devices, have 4"):
+        make_mesh(8)
