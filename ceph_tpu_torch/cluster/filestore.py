@@ -1,0 +1,219 @@
+"""FileStore: a durable, journaled ObjectStore.
+
+Counterpart of ``ceph_tpu/cluster/filestore.py``.
+
+Behavioral analog of the reference's journaling object store (FileStore:
+write-ahead journal + apply, src/os/filestore; same Transaction contract as
+BlueStore's txn path, src/os/ObjectStore.h:1470-1498 and
+src/os/bluestore/BlueStore.cc:9012): every Transaction is framed and
+appended to a write-ahead journal BEFORE being applied to the in-memory
+state, and a periodic checkpoint (atomic tmp+rename snapshot) bounds
+journal replay.  mount() restores checkpoint + replays the journal tail,
+so an OSD restart resumes with all data, xattrs, omaps, versions, and the
+persisted PG logs intact — the restart-resume path the reference drives
+from OSD::init (read_superblock/load_pgs, src/osd/OSD.cc:2556,2572).
+
+Design choice (not a disk engine): state is RAM-resident (MemStore
+semantics) with durability from the journal — the dev-cluster and tests
+exercise the exact ObjectStore contract while the hot I/O path stays
+allocation-free.  The block-device store is ``bluestore.py``.  The
+journal and checkpoint are pickles of this package's own classes; the
+port reads and writes only its own files.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import struct
+from typing import Optional
+
+from ceph_tpu_torch.cluster.store import MemStore, Transaction
+
+_FRAME = struct.Struct("<I")
+
+
+def _damage_journal(path: str, torn_tail: bool, lose_frames: int) -> None:
+    """Crash-model journal damage: truncate away the last ``lose_frames``
+    committed frames, then (optionally) re-append HALF of the next frame
+    so the tail is torn mid-write.  Chaos counters tick per mutation."""
+    if not os.path.exists(path) or (not torn_tail and not lose_frames):
+        return
+    from ceph_tpu_torch.chaos.counters import CHAOS
+
+    offsets = []   # frame start offsets
+    with open(path, "rb") as f:
+        off = 0
+        while True:
+            hdr = f.read(4)
+            if len(hdr) < 4:
+                break
+            (n,) = _FRAME.unpack(hdr)
+            blob = f.read(n)
+            if len(blob) < n:
+                break   # already-torn tail: leave as-is
+            offsets.append((off, 4 + n))
+            off += 4 + n
+    victims = offsets[max(0, len(offsets) - lose_frames):] \
+        if lose_frames else []
+    keep_end = victims[0][0] if victims else (
+        offsets[-1][0] if torn_tail and offsets else None)
+    if keep_end is None:
+        return
+    torn_src = None
+    if torn_tail:
+        # the frame being torn: the first lost frame (its write "was in
+        # flight" at the cut) or the last surviving one
+        torn_src = victims[0] if victims else offsets[-1]
+    with open(path, "rb+") as f:
+        torn_bytes = b""
+        if torn_src is not None:
+            f.seek(torn_src[0])
+            whole = f.read(torn_src[1])
+            torn_bytes = whole[: max(5, torn_src[1] // 2)]
+        f.truncate(keep_end)
+        if torn_bytes:
+            f.seek(keep_end)
+            f.write(torn_bytes)
+            CHAOS.inc("disk_torn_journals")
+    if victims:
+        CHAOS.inc("disk_lost_frames", len(victims))
+
+
+class FileStore(MemStore):
+    def __init__(self, path: str, checkpoint_every: int = 2048,
+                 fsync: bool = False, device_bytes: int = 1 << 30):
+        super().__init__(device_bytes)
+        self.path = path
+        self.checkpoint_every = checkpoint_every
+        self.fsync = fsync
+        self._journal = None
+        self._since_checkpoint = 0
+        self._mounted = False
+        self._ckpt_inflight = False
+
+    # -- lifecycle ----------------------------------------------------------
+
+    @property
+    def _ckpt_path(self) -> str:
+        return os.path.join(self.path, "checkpoint.bin")
+
+    @property
+    def _journal_path(self) -> str:
+        return os.path.join(self.path, "journal.bin")
+
+    def mount(self) -> None:
+        os.makedirs(self.path, exist_ok=True)
+        if os.path.exists(self._ckpt_path):
+            with open(self._ckpt_path, "rb") as f:
+                self._colls = pickle.load(f)
+            # the checkpoint restores the object map wholesale: rebuild
+            # the incremental used-bytes counter before journal replay
+            # (replayed ops then adjust it like live transactions)
+            self._recount_used()
+        if os.path.exists(self._journal_path):
+            with open(self._journal_path, "rb") as f:
+                while True:
+                    hdr = f.read(4)
+                    if len(hdr) < 4:
+                        break
+                    (n,) = _FRAME.unpack(hdr)
+                    blob = f.read(n)
+                    if len(blob) < n:
+                        break  # torn tail write: discard (atomic replay)
+                    txn = Transaction.decode(blob)
+                    with self._lock:
+                        for op in txn.ops:
+                            self._apply(op)
+        self._journal = open(self._journal_path, "ab")
+        self._mounted = True
+
+    def umount(self) -> None:
+        if self._mounted:
+            self.checkpoint()
+            self._journal.close()
+            self._journal = None
+            self._mounted = False
+
+    def crash(self, torn_tail: bool = False, lose_frames: int = 0) -> None:
+        """Power-cut stop (chaos disk injector): close WITHOUT the
+        clean-shutdown checkpoint, drop all RAM state, and optionally
+        mutate the on-disk journal tail — ``lose_frames`` discards the
+        last N committed frames (lost writes), ``torn_tail`` truncates
+        the (remaining) last frame mid-bytes so mount() meets a torn
+        write and must discard it atomically.  The next mount() resumes
+        from checkpoint + surviving journal exactly like a machine that
+        lost power."""
+        if not self._mounted:
+            return
+        self._journal.close()
+        self._journal = None
+        self._mounted = False
+        self._colls = {}
+        self._used = 0
+        self._since_checkpoint = 0
+        _damage_journal(self._journal_path, torn_tail, lose_frames)
+
+    def checkpoint(self) -> None:
+        """Atomic snapshot + journal truncate (bounded replay)."""
+        tmp = self._ckpt_path + ".tmp"
+        with self._lock:
+            if self._journal is None:
+                return  # raced umount; final checkpoint already ran
+            with open(tmp, "wb") as f:
+                pickle.dump(self._colls, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self._ckpt_path)
+            self._journal.close()
+            self._journal = open(self._journal_path, "wb")
+            self._since_checkpoint = 0
+
+    # -- transactions -------------------------------------------------------
+
+    def queue_transaction(self, txn: Transaction) -> None:
+        if not self._mounted:
+            raise RuntimeError("FileStore not mounted")
+        if self.chaos is not None:
+            # refuse BEFORE the journal write: an injected ENOSPC must
+            # not leave a journaled-but-unapplied frame
+            self.chaos.on_write(txn)
+        # the round-16 capacity backstop, likewise pre-journal: a
+        # refused txn must never persist a frame replay would re-apply
+        self._check_capacity(txn)
+        blob = txn.encode()
+        with self._lock:
+            self._journal.write(_FRAME.pack(len(blob)) + blob)
+            self._journal.flush()
+            if self.fsync:
+                os.fsync(self._journal.fileno())
+        self._commit(txn)
+        if self.chaos is not None:
+            # rot hits the live (RAM) state only — like media decay on
+            # the applied copy; the journal frame stays pristine
+            self.chaos.maybe_rot(self, txn)
+        # store-commit boundary on the current op's timeline: the txn is
+        # journal-durable and applied (no-op outside a tracked dispatch)
+        from ceph_tpu_torch.cluster.optracker import mark_current
+
+        mark_current("store:commit")
+        self._since_checkpoint += 1
+        if self._since_checkpoint >= self.checkpoint_every and \
+                not self._ckpt_inflight:
+            # checkpoint OFF the caller's thread: a synchronous whole-store
+            # pickle would stall the OSD event loop (heartbeats/beacons)
+            # for the duration; the journal keeps durability meanwhile
+            self._ckpt_inflight = True
+            self._since_checkpoint = 0
+            import asyncio
+
+            def _bg():
+                try:
+                    self.checkpoint()
+                finally:
+                    self._ckpt_inflight = False
+
+            try:
+                asyncio.get_running_loop().run_in_executor(None, _bg)
+            except RuntimeError:
+                _bg()

@@ -181,7 +181,18 @@ def _fold_blocks(cs2d: np.ndarray, lane: int) -> np.ndarray:
     return cs2d[:, 0]
 
 
-_HOST_LANE = 512
+def _host_lane(total_bytes: int) -> int:
+    """Lane of the host table loop for a batch of ``total_bytes``.
+
+    Each loop step is one numpy pass over every lane, so a small batch
+    (a store transaction's few blocks) wants short lanes and few steps,
+    and a large one longer lanes and fewer fold levels.  The thresholds
+    are where the loop and the fold tree cost about the same on one
+    host core."""
+    for lane, upto in ((32, 1 << 15), (64, 1 << 18), (128, 1 << 20)):
+        if total_bytes <= upto:
+            return lane
+    return 256
 
 
 def _block_crcs_host(arr: np.ndarray, lane: int) -> np.ndarray:
@@ -293,7 +304,7 @@ def crc32c_rows(rows, seed: int = 0xFFFFFFFF, block: int = 4096,
     r, length = (int(x) for x in rows.shape)
     if r == 0:
         return []
-    lane = block if on_dev else _HOST_LANE
+    lane = block if on_dev else _host_lane(r * length)
     if length == 0 or length % lane:
         arr = rows.cpu().numpy() if isinstance(rows, torch.Tensor) \
             else np.asarray(rows, dtype=np.uint8)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement and device mesh on the CUDA cards.
+"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement, device mesh and OSD store path on the CUDA cards.
 
 Run from the repository root with no arguments:
 
@@ -95,10 +95,40 @@ non-zero if any of them fails:
    ``MeshCodecAdapter`` on 4095 stripes (padded to the data axis); and
    ``crush_batch_sharded`` of the 1,000,000 ``BENCH_PGS`` on the
    9,984-OSD map against ``do_rule_batch``;
-7. one launch: a torch.profiler trace of one cauchy ``encode_planar``
+7. the OSD store path (``ceph_tpu_torch/cluster/``: the tick batchers,
+   the messenger and the object stores, with kernels B1 and B2 behind the
+   batchers' ticks): a primary stand-in (the port's ``Config``,
+   ``PerfCounters`` and clock, ``_compute`` through ``run_in_executor``,
+   ``device`` the card, the port's ``EncodeBatcher``, ``ReadBatcher`` and
+   ``SubWriteBatcher``, sub-writes out through its own ``Messenger``) and
+   twelve shard peers, each a ``Messenger`` on 127.0.0.1 whose dispatcher
+   applies every ``MOSDECSubOpWrite``, alone or in a
+   ``MOSDECSubOpWriteBatch``, as one ``Transaction`` on its own store and
+   acks it; every store in a temporary directory.  Pool A: ISA k8m4 at
+   ``StripeInfo(8, 4096)``, planes at rest in twelve BlueStores (256 MiB
+   devices, ``checkpoint_every=512``), four ticks of ``TICK_SIZES``, each
+   submitted at once to ``EncodeBatcher.encode(..., planar=True)``.
+   Checked: every tick coalesced all 261 ops, the sub-writes left as batch
+   frames, every peer applied every shard; then every store crashes and
+   remounts (WAL replay after its checkpoints), every shard of every op
+   is read back with ``read_planar`` and verified through
+   ``ReadBatcher.verify`` against the tick's crcs on the card (all true);
+   a bit flipped by ``DiskInjector.flip_bit`` makes that store's read
+   raise EIO and that row's verify (of the bytes the device holds) false;
+   ``ReadBatcher.decode`` of every op with shards (0,), (1, 10) and
+   (0, 1, 2, 3) lost equals the client bytes, and ``reencode`` with
+   shard 4 lost equals the stored planes.  Pool B: cauchy_good k8m4
+   packetsize 2048 at ``StripeInfo(8, 16384)``, bytes at rest in twelve
+   FileStores, one tick, crash (journal intact) and remount, verify (all
+   true), decode with (0,) and (2, 11) lost.  Printed beside the card:
+   the median tick (encode window) and ops per tick, the tick from submit
+   to all twelve peers applied and the encode window's share of it, MB/s
+   of shard bytes into the stores, the remount time and the
+   read-and-verify time;
+8. one launch: a torch.profiler trace of one cauchy ``encode_planar``
    call shows exactly one device kernel, B2's staged kernel, and no
    ``pack_blocks_kernel``;
-8. timing: CUDA-event medians of B1 and B2 and of their plain versions at
+9. timing: CUDA-event medians of B1 and B2 and of their plain versions at
    their headline shapes (L2 flushed before each launch), each kernel's
    share of its bound, a same-traffic yardstick (``torch.bitwise_xor`` of
    the two 8 MiB halves of a (64, 262144) uint8 tensor into 8 MiB), the
@@ -115,8 +145,8 @@ non-zero if any of them fails:
    medians), and the wall medians of ``crush_batch_sharded`` and
    ``do_rule_batch`` on the 1,000,000 PGs.
 
-Phases 2, 3, each path of phase 4, phase 5 (a)-(c), (d), (e) and phase 6
-are main paths: kernel launch counts
+Phases 2, 3, each path of phase 4, phase 5 (a)-(c), (d), (e), phase 6 and
+each pool of phase 7 are main paths: kernel launch counts
 are set to 0 just before each and read just after, every kernel of the
 path must have launched, and every launch must have taken the staged
 path, except on the w=32 path, whose encode and 4-erasure decode take the
@@ -124,9 +154,10 @@ kept one; the placement path launches neither kernel and its
 ``crush_map_*`` counters must show its five batched calls, the C1 path's
 its two, the scorer path's ``balance_candidates_scored`` the
 candidates the round reports, and the mesh path launches neither kernel
-and maps one shard per mesh slot.  The last lines are the card's name and
-power limit, one JSON object describing each kernel (B1's launches summed over every main
-path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
+and maps one shard per mesh slot; the store path's pool A launches B1
+and not B2, its pool B launches B2, every launch staged.  The last lines
+are the card's name and power limit, one JSON object describing each
+kernel (B1's and B2's launches summed over every main path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 prints no result and exits non-zero.
 """
 
@@ -138,6 +169,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -1777,6 +1809,388 @@ def phase_mesh_timing(isa, m, rule, ref, out, single_s: float, card: str):
         f"[{card}]")
 
 
+# ---------------------------------------------------------------------------
+# the OSD store path: the port's batchers, messenger and stores
+# ---------------------------------------------------------------------------
+
+# ticks of TICK_SIZES through pool A (planes at rest in BlueStores); pool B
+# (bytes at rest in FileStores) takes one
+STORE_TICKS = 4
+STORE_TICK_OPS = 512            # osd_batch_tick_ops: a whole tick coalesces
+STORE_ERASURES = [(0,), (1, 10), (0, 1, 2, 3)]
+STORE_BYTE_ERASURES = [(0,), (2, 11)]
+STORE_FLIP_PEER = 5
+STORE_ACK_TIMEOUT_S = 120.0
+
+
+class StorePeer:
+    """One shard peer: a messenger on loopback whose dispatcher applies
+    every sub-write, alone or in a batch frame, as one transaction on its
+    own store, and acks it on the connection it came in on."""
+
+    def __init__(self, osd_id: int, store):
+        from ceph_tpu_torch.cluster.messenger import EntityName, Messenger
+
+        self.osd_id = osd_id
+        self.store = store
+        self.applied = 0
+        self.messenger = Messenger(EntityName("osd", osd_id))
+        self.messenger.add_dispatcher(self)
+
+    async def ms_dispatch(self, conn, msg) -> bool:
+        from ceph_tpu_torch.cluster import messages as M
+
+        if isinstance(msg, M.MOSDECSubOpWriteBatch):
+            for item in msg.items:
+                self.apply(item)
+            await conn.send(M.MOSDECSubOpWriteBatchReply(
+                results=[(it.reqid, 0, it.shard) for it in msg.items]))
+            return True
+        if isinstance(msg, M.MOSDECSubOpWrite):
+            self.apply(msg)
+            await conn.send(M.MOSDECSubOpWriteReply(reqid=msg.reqid,
+                                                     result=0))
+            return True
+        return False
+
+    async def ms_handle_reset(self, conn) -> None:
+        pass
+
+    def apply(self, sub) -> None:
+        from ceph_tpu_torch.cluster.store import Transaction
+        from ceph_tpu_torch.ec import planar_store
+
+        coll, oid = str(sub.pgid), sub.oid
+        txn = Transaction()
+        if sub.layout == planar_store.LAYOUT_PLANAR:
+            txn.write_planar(coll, oid, sub.chunk_off // 8, sub.data,
+                             sub.shard_size // 8)
+        else:
+            txn.write(coll, oid, sub.chunk_off, sub.data) \
+               .truncate(coll, oid, sub.shard_size)
+        txn.setattr(coll, oid, "shard", str(sub.shard).encode()) \
+           .setattr(coll, oid, "size", str(sub.hinfo["size"]).encode()) \
+           .setattr(coll, oid, "hinfo_crc", str(sub.hinfo["crc"]).encode()) \
+           .set_version(coll, oid, sub.hinfo["version"])
+        self.store.queue_transaction(txn)
+        self.applied += 1
+
+
+class StorePrimary:
+    """The primary OSD's stand-in (the ``_FakeOSD`` of
+    ``tests/test_batch_chaos.py``): the port's config, counters and clock,
+    the tick compute in an executor thread as ``OSD._compute`` runs it,
+    the port's three batchers, and sub-writes out through its own
+    messenger; acks from the peers are counted."""
+
+    def __init__(self, device, peer_addrs):
+        from ceph_tpu_torch.chaos.clock import ChaosClock
+        from ceph_tpu_torch.cluster.batcher import (EncodeBatcher,
+                                                    ReadBatcher,
+                                                    SubWriteBatcher)
+        from ceph_tpu_torch.cluster.messenger import EntityName, Messenger
+        from ceph_tpu_torch.utils import Config, PerfCounters
+
+        self._stopped = False
+        self.config = Config(osd_batch_tick_ops=STORE_TICK_OPS)
+        self.perf = PerfCounters("osd.0")
+        self.clock = ChaosClock.from_config(self.config)
+        self.device = device
+        self.osdmap = types.SimpleNamespace(epoch=1)
+        self.peer_addrs = peer_addrs
+        self.acked = 0
+        self._tasks = set()
+        self.messenger = Messenger(EntityName("osd", 0))
+        self.messenger.add_dispatcher(self)
+        self.encoder = EncodeBatcher(self)
+        self.reader = ReadBatcher(self)
+        self.subwrites = SubWriteBatcher(self)
+
+    def _track(self, task):
+        from ceph_tpu_torch.utils.tasks import track_task
+
+        return track_task(self._tasks, task)
+
+    def _chaos_point(self, name: str) -> None:
+        pass
+
+    async def _compute(self, fn, *args):
+        import asyncio
+        import functools
+
+        return await asyncio.get_running_loop().run_in_executor(
+            None, functools.partial(fn, *args))
+
+    async def _send_osd(self, target: int, msg) -> None:
+        await self.messenger.send_message(msg, self.peer_addrs[target])
+
+    async def ms_dispatch(self, conn, msg) -> bool:
+        from ceph_tpu_torch.cluster import messages as M
+
+        if isinstance(msg, M.MOSDECSubOpWriteBatchReply):
+            self.acked += len(msg.results)
+            return True
+        if isinstance(msg, M.MOSDECSubOpWriteReply):
+            self.acked += 1
+            return True
+        return False
+
+    async def ms_handle_reset(self, conn) -> None:
+        pass
+
+
+async def store_write_tick(osd, codec, sinfo, datas, tick: int,
+                           planar: bool, written: list):
+    """One tick: every op submitted at once to ``EncodeBatcher.encode``,
+    each op's twelve shards fanned out through ``SubWriteBatcher`` (one
+    frame per peer), and the tick waited for until every peer acked every
+    shard.  Returns (the encode windows, submit-to-applied wall, shard
+    bytes)."""
+    import asyncio
+
+    from ceph_tpu_torch.cluster import messages as M
+    from ceph_tpu_torch.ec import planar_store
+    from ceph_tpu_torch.osdmap.osdmap import PGid
+
+    n = codec.get_chunk_count()
+    want = osd.acked + n * len(datas)
+    t0 = time.perf_counter()
+
+    async def op(i, data):
+        shards, crcs, window = await osd.encoder.encode(
+            codec, sinfo, data, True, planar=planar)
+        if not isinstance(shards, np.ndarray):
+            raise AssertionError(f"the tick answered {type(shards)}")
+        pgid = PGid(1, i % 64)
+        oid = f"t{tick}.o{i}"
+        rows = [np.ascontiguousarray(shards[s]) for s in range(n)]
+        size = rows[0].size
+        subs = [M.MOSDECSubOpWrite(
+            reqid=("client.smoke", tick * 100_000 + i), pgid=pgid, oid=oid,
+            shard=s, data=rows[s].tobytes(), chunk_off=0, shard_size=size,
+            hinfo={"size": len(data), "version": tick + 1, "crc": crcs[s]},
+            epoch=1,
+            layout=planar_store.LAYOUT_PLANAR if planar else None)
+            for s in range(n)]
+        await asyncio.gather(*(osd.subwrites.send(s, sub)
+                               for s, sub in enumerate(subs)))
+        written.append((str(pgid), oid, data, list(crcs)))
+        return window, n * size
+
+    got = await asyncio.gather(*(op(i, d) for i, d in enumerate(datas)))
+    deadline = time.perf_counter() + STORE_ACK_TIMEOUT_S
+    while osd.acked < want:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"tick {tick}: {osd.acked} of {want} "
+                                 "sub-writes acked")
+        await asyncio.sleep(0.001)
+    wall = time.perf_counter() - t0
+    return [w for w, _b in got], wall, sum(b for _w, b in got)
+
+
+def raw_object(store, coll: str, oid: str) -> bytes:
+    """The bytes a BlueStore's device holds for an object, read past the
+    csum check (what the media returns)."""
+    from ceph_tpu_torch.cluster.bluestore import BLOCK, SUPER_BLOCKS
+
+    o = store._onodes[coll][oid]
+    out = bytearray()
+    for blkno in o.blocks:
+        store._dev.seek((SUPER_BLOCKS + blkno) * BLOCK)
+        out += store._dev.read(BLOCK)
+    return bytes(out[:o.size])
+
+
+async def store_pool(codec, sinfo, device, make_store, ticks: int,
+                     planar: bool, erasures, card: str, label: str):
+    """One pool of the store path: twelve peers on their stores, the
+    primary, ``ticks`` write ticks, crash and remount of every store,
+    then read, verify (and for planes a flipped bit), decode and
+    reencode through ``ReadBatcher``."""
+    import asyncio
+
+    from ceph_tpu_torch.chaos.disk import DiskInjector
+    from ceph_tpu_torch.chaos.rng import stream
+
+    n = codec.get_chunk_count()
+    peers = [StorePeer(s + 1, make_store(s)) for s in range(n)]
+    for p in peers:
+        p.store.mount()
+    addrs = {s: await p.messenger.bind("127.0.0.1", 0)
+             for s, p in enumerate(peers)}
+    osd = StorePrimary(device, addrs)
+    out = {"label": label}
+    try:
+        written: list = []
+        windows, walls, nbytes = [], [], 0
+        for tick in range(ticks):
+            datas = tick_datas(SEED + 700 + tick)
+            w, wall, b = await store_write_tick(osd, codec, sinfo, datas,
+                                                tick, planar, written)
+            windows.append(w)
+            walls.append(wall)
+            nbytes += b
+        perf = {k: osd.perf.get(k) for k in (
+            "osd_batch_ticks", "osd_batch_coalesced_ops",
+            "osd_subwrite_batches", "osd_subwrite_batched_items")}
+        per_tick = [{x[2] for x in w} for w in windows]
+        if perf["osd_batch_ticks"] != ticks or \
+                perf["osd_batch_coalesced_ops"] != ticks * len(TICK_SIZES) \
+                or any(s != {len(TICK_SIZES)} for s in per_tick):
+            raise AssertionError(f"{label}: ticks did not coalesce every op: "
+                                 f"{perf}, batch sizes {per_tick}")
+        if perf["osd_subwrite_batches"] < ticks * n or \
+                perf["osd_subwrite_batched_items"] < \
+                ticks * n * (len(TICK_SIZES) - 1):
+            raise AssertionError(f"{label}: sub-writes did not leave as "
+                                 f"batch frames: {perf}")
+        if sum(p.applied for p in peers) != ticks * n * len(TICK_SIZES):
+            raise AssertionError(f"{label}: peers applied "
+                                 f"{[p.applied for p in peers]}")
+        tick_s = [w[0][1] - w[0][0] for w in windows]
+        out.update(perf=perf, tick_s=tick_s, walls=walls, nbytes=nbytes)
+        log(f"store path ({label}): {ticks} ticks x {len(TICK_SIZES)} ops; "
+            f"counters {json.dumps(perf, sort_keys=True)}; median tick "
+            f"(encode window t1 - t0) {statistics.median(tick_s) * 1e3:.3f} "
+            f"ms; median tick submit to all {n} peers applied "
+            f"{statistics.median(walls) * 1e3:.3f} ms (the encode window "
+            f"{100 * statistics.median(tick_s) / statistics.median(walls):.1f}"
+            f" % of it); {nbytes / sum(walls) / 1e6:.3f} MB/s of shard "
+            f"bytes into the stores [{card}]")
+        # crash every store (no clean checkpoint) and remount it
+        t0 = time.perf_counter()
+        for p in peers:
+            p.store.crash()
+        for p in peers:
+            p.store.mount()
+        remount_s = time.perf_counter() - t0
+        # read every shard of every op back and verify it against the
+        # tick's crcs, one request per op
+        t0 = time.perf_counter()
+        rows = [[(p.store.read_planar(coll, oid) if planar
+                  else p.store.read(coll, oid)) for p in peers]
+                for coll, oid, _d, _c in written]
+        read_s = time.perf_counter() - t0
+        oks = await asyncio.gather(*(
+            osd.reader.verify(r, crcs, planar=planar)
+            for r, (_c, _o, _d, crcs) in zip(rows, written)))
+        verify_s = time.perf_counter() - t0
+        if not all(all(o) for o in oks):
+            raise AssertionError(f"{label}: a stored shard failed verify")
+        out.update(remount_s=remount_s, read_s=read_s, verify_s=verify_s)
+        out["verify_device"] = str(osd.reader.device)
+        if planar:
+            # the host csum a BlueStore read pays: one crc32c_rows call
+            # over the blocks of one 64 KiB op's shard
+            from ceph_tpu_torch.ops.crc32c import crc32c_rows
+
+            blocks = np.frombuffer(rows[1][0], dtype=np.uint8).reshape(
+                -1, 4096)
+            times = []
+            for _ in range(51):
+                t1 = time.perf_counter()
+                crc32c_rows(blocks)
+                times.append(time.perf_counter() - t1)
+            out["csum_ms"] = 1e3 * statistics.median(times)
+            log(f"store path ({label}): host csum of one shard's "
+                f"{blocks.shape[0]} blocks in one crc32c_rows call, median "
+                f"{out['csum_ms']:.3f} ms; a shard's read_planar "
+                f"{1e3 * read_s / (len(rows) * n):.3f} ms on average "
+                f"[{card}]")
+        log(f"store path ({label}): crash + remount of {n} stores "
+            f"{remount_s * 1e3:.3f} ms; read of {len(rows) * n} shards "
+            f"{read_s * 1e3:.3f} ms, read and verify on "
+            f"{osd.reader.device} {verify_s * 1e3:.3f} ms, every crc "
+            f"equal [{card}]")
+        if planar:
+            coll, oid, _d, crcs = written[1]
+            store = peers[STORE_FLIP_PEER].store
+            bit = DiskInjector(stream(SEED, "disk:smoke")).flip_bit(
+                store, coll, oid)
+            try:
+                store.read_planar(coll, oid)
+            except IOError as e:
+                eio = str(e)
+            else:
+                raise AssertionError(f"{label}: a flipped bit read back")
+            rotted = list(rows[1])
+            rotted[STORE_FLIP_PEER] = raw_object(store, coll, oid)
+            got = await osd.reader.verify(rotted, crcs, planar=True)
+            want = [s != STORE_FLIP_PEER for s in range(n)]
+            if got != want:
+                raise AssertionError(f"{label}: verify after the flip {got}")
+            log(f"store path ({label}): bit {bit} of {coll}/{oid} on peer "
+                f"{STORE_FLIP_PEER} flipped: the store raises ({eio}), "
+                f"verify of the device bytes is false for that row only")
+        # planes decode from the stored blobs, byte rows from arrays
+        arrays = rows if planar else [
+            [np.frombuffer(x, dtype=np.uint8) for x in r] for r in rows]
+        for er in erasures:
+            reqs = [({s: r[s] for s in range(n) if s not in er}, len(d))
+                    for r, (_c, _o, d, _cr) in zip(arrays, written)]
+            got = await asyncio.gather(*(
+                osd.reader.decode(codec, sinfo, sh, size, planar=planar)
+                for sh, size in reqs))
+            if got != [d for _c, _o, d, _cr in written]:
+                raise AssertionError(f"{label}: decode with {er} lost wrong")
+        log(f"store path ({label}): ReadBatcher.decode of all "
+            f"{len(written)} ops equals the client bytes with shards "
+            f"{erasures} lost")
+        if planar:
+            lost = (4,)
+            reqs = [({s: r[s] for s in range(n) if s not in lost}, len(d))
+                    for r, (_c, _o, d, _cr) in zip(rows, written)]
+            got = await asyncio.gather(*(
+                osd.reader.reencode(codec, sinfo, sh, size, planar=True)
+                for sh, size in reqs))
+            for g, r in zip(got, rows):
+                stored = np.stack([np.frombuffer(x, dtype=np.uint8)
+                                   .reshape(8, -1) for x in r])
+                if not np.array_equal(np.asarray(g), stored):
+                    raise AssertionError(f"{label}: reencode differs")
+            log(f"store path ({label}): ReadBatcher.reencode with shard "
+                f"{lost} lost equals the stored planes of every op")
+        out["read_ticks"] = (osd.perf.get("osd_read_batch_ticks"),
+                             osd.perf.get("osd_read_batch_coalesced"))
+    finally:
+        osd._stopped = True
+        await osd.messenger.shutdown()
+        for p in peers:
+            await p.messenger.shutdown()
+            p.store.umount()
+    return out
+
+
+def phase_store_path(isa, cauchy, device, card: str, count_window):
+    """The OSD store path: pool A (ISA k8m4 planes at rest in twelve
+    BlueStores, kernel B1) and pool B (cauchy_good k8m4 bytes at rest in
+    twelve FileStores, kernel B2), each through ``count_window``."""
+    import asyncio
+    import tempfile
+
+    from ceph_tpu_torch.cluster.bluestore import BlueStore
+    from ceph_tpu_torch.cluster.filestore import FileStore
+    from ceph_tpu_torch.ec import stripe
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stores_") as tmp:
+        sinfo = stripe.StripeInfo(8, 4096)
+        out["A"] = count_window("store path A", lambda: asyncio.run(
+            store_pool(isa, sinfo, device,
+                       lambda s: BlueStore(f"{tmp}/a{s}"), STORE_TICKS,
+                       True, STORE_ERASURES, card,
+                       "pool A, ISA k8m4, planes in BlueStore")))
+        sinfo = stripe.StripeInfo(8, 16384)
+        out["B"] = count_window("store path B", lambda: asyncio.run(
+            store_pool(cauchy, sinfo, device,
+                       lambda s: FileStore(f"{tmp}/b{s}"), 1, False,
+                       STORE_BYTE_ERASURES, card,
+                       "pool B, cauchy_good k8m4, bytes in FileStore")))
+    log(f"store path: phase wall {time.perf_counter() - t0:.3f} s [{card}]")
+    return out
+
+
 def phase_loop_slope(codec, kernel_ms: float, card: str):
     """``device_loop_slope`` on B1's headline ISA shape (the L-step chain
     as one CUDA graph), beside the CUDA-event median of phase_timing."""
@@ -2087,6 +2501,45 @@ def main() -> int:
     if counts.get("crush_map_calls", 0) != mesh_out["slots"]:
         raise AssertionError("the sharded placement did not map one shard "
                              "per mesh slot")
+
+    # the OSD store path: the port's batchers, messenger and stores on
+    # codecs and a verify device named by index (the ticks run in executor
+    # threads); each pool its own counted window
+    store_dev = torch.device("cuda", 0)
+    store_isa = factory({"plugin": "isa", "k": "8", "m": "4"},
+                        device=store_dev)
+    store_cauchy = factory(CAUCHY_PROFILE, device=store_dev)
+    store_counts = {}
+
+    def store_window(label, run):
+        reset_counts()
+        res = run()
+        torch.cuda.synchronize()
+        log(f"main path ({label}): {path_counts('B1', gf8_cuda)}, "
+            f"{path_counts('B2', gf8_bytes_cuda)}; counters "
+            f"{json.dumps(KERNELS.dump()['device_kernels'], sort_keys=True)}")
+        store_counts[label] = (gf8_cuda.launches, gf8_cuda.kept_launches,
+                               gf8_bytes_cuda.launches,
+                               gf8_bytes_cuda.kept_launches)
+        return res
+
+    store_out = phase_store_path(store_isa, store_cauchy, store_dev, card,
+                                 store_window)
+    if any(not o["verify_device"].startswith("cuda")
+           for o in store_out.values()):
+        raise AssertionError("a store-path verify tick ran off the card")
+    a_b1, a_b1_kept, a_b2, a_b2_kept = store_counts["store path A"]
+    b_b1, b_b1_kept, b_b2, b_b2_kept = store_counts["store path B"]
+    if a_b1 <= 0:
+        raise AssertionError("store path A never launched kernel B1")
+    if a_b2:
+        raise AssertionError("store path A launched kernel B2")
+    if b_b2 <= 0:
+        raise AssertionError("store path B never launched kernel B2")
+    if a_b1_kept or a_b2_kept or b_b1_kept or b_b2_kept:
+        raise AssertionError("a store-path launch took the kept path")
+    b1_launches += a_b1 + b_b1
+    b2_launches += a_b2 + b_b2
 
     phase_one_launch(cauchy, cdata)
     yard_ms = phase_yardstick(card)

@@ -7,7 +7,10 @@
   device; so do CRUSH's batched mapper, an OSDMap's batched placement and
   the device mesh with its EC engine;
 - the B1 and B2 wrappers never answer a non-CPU tensor with their plain
-  versions.
+  versions;
+- a ``ReadBatcher`` whose OSD names no device verifies on CUDA, and raises
+  where there is none; an ``EncodeBatcher`` tick of a codec off the CPU
+  never answers with the plain version of B1 or B2.
 """
 
 import os
@@ -66,6 +69,22 @@ def test_import_leaves_jax_and_reference_out():
         "import ceph_tpu_torch.trace.attribution, ceph_tpu_torch.trace.flight\n"
         "import ceph_tpu_torch.trace.loopmon, ceph_tpu_torch.trace.perfetto\n"
         "import ceph_tpu_torch.trace.postmortem\n"
+        "import ceph_tpu_torch.chaos.clock, ceph_tpu_torch.chaos.points\n"
+        "import ceph_tpu_torch.chaos.disk, ceph_tpu_torch.chaos.net\n"
+        "import ceph_tpu_torch.cluster.optracker, ceph_tpu_torch.cluster.kv\n"
+        "import ceph_tpu_torch.cluster.store, ceph_tpu_torch.cluster.filestore\n"
+        "import ceph_tpu_torch.cluster.bluestore\n"
+        "import ceph_tpu_torch.cluster.messenger\n"
+        "import ceph_tpu_torch.cluster.messages\n"
+        "import ceph_tpu_torch.cluster.batcher\n"
+        "import tempfile\n"
+        "from ceph_tpu_torch.cluster.bluestore import BlueStore\n"
+        "from ceph_tpu_torch.cluster.store import Transaction\n"
+        "bs = BlueStore(tempfile.mkdtemp() + '/bs', size=1 << 20)\n"
+        "bs.mount()\n"
+        "bs.queue_transaction(Transaction().write('c', 'o', 0, b'x' * 9000))\n"
+        "assert bs.read('c', 'o') == b'x' * 9000\n"
+        "bs.umount()\n"
         "from ceph_tpu_torch.parallel import make_mesh, distributed_ec_step\n"
         "step, args = distributed_ec_step(make_mesh(devices=['cpu'] * 8),"
         " 8, 4, 8, 64)\n"
@@ -317,3 +336,86 @@ def test_mesh_defaults_to_cuda_and_refuses_cpu_fallback(monkeypatch):
     assert eng.mesh == mesh
     with pytest.raises(ValueError, match="need 8 devices, have 4"):
         make_mesh(8)
+
+
+class _StubOSD:
+    """The batchers' view of an OSD: config, counters, clock, tasks and
+    the tick compute in an executor thread."""
+
+    def __init__(self, **kw):
+        from ceph_tpu_torch.chaos.clock import ChaosClock
+        from ceph_tpu_torch.utils import Config, PerfCounters
+
+        self._stopped = False
+        self.config = Config(osd_batch_tick_ops=64)
+        self.perf = PerfCounters("osd.stub")
+        self.clock = ChaosClock()
+        self._tasks = set()
+        self.__dict__.update(kw)
+
+    def _track(self, task):
+        self._tasks.add(task)
+        return task
+
+    def _chaos_point(self, name):
+        pass
+
+    async def _compute(self, fn, *args):
+        import asyncio
+        import functools
+
+        return await asyncio.get_running_loop().run_in_executor(
+            None, functools.partial(fn, *args))
+
+
+def test_read_batcher_defaults_to_cuda_and_refuses_cpu_fallback(
+        monkeypatch):
+    from ceph_tpu_torch.cluster.batcher import ReadBatcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ReadBatcher(_StubOSD())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ReadBatcher(_StubOSD(device="cuda"))
+    assert ReadBatcher(_StubOSD(device="cpu")).device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert ReadBatcher(_StubOSD()).device.type == "cuda"
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("profile", [
+    {"plugin": "isa", "k": "8", "m": "4"},
+    {"plugin": "jerasure", "technique": "cauchy_good", "k": "8", "m": "4",
+     "packetsize": "2048"}], ids=["isa", "cauchy"])
+def test_encode_batcher_tick_off_the_cpu_never_runs_plain_kernels(
+        monkeypatch, profile, planar):
+    """A codec off the CPU (here the meta device stands in for the card,
+    which this machine lacks): every request of the tick fails with the
+    wrappers' refusal, and neither plain version runs."""
+    import asyncio
+
+    from ceph_tpu_torch.cluster.batcher import EncodeBatcher
+    from ceph_tpu_torch.ec.stripe import StripeInfo
+
+    calls = []
+    monkeypatch.setattr(gf8_cuda, "planar_matmul_ref",
+                        lambda *a: calls.append("B1"))
+    monkeypatch.setattr(gf8_bytes_cuda, "bitmatrix_matmul_ref",
+                        lambda *a: calls.append("B2"))
+    codec = factory(dict(profile), device="meta")
+    sinfo = StripeInfo(8, 4096 if planar else 16384)
+    before = (gf8_cuda.launches, gf8_bytes_cuda.launches)
+
+    async def tick():
+        osd = _StubOSD(device="meta")
+        eb = EncodeBatcher(osd)
+        res = await asyncio.gather(
+            *(eb.encode(codec, sinfo, bytes(n), True, planar=planar)
+              for n in (4096, 70000, 200000)), return_exceptions=True)
+        return res, osd.perf.get("osd_batch_ticks")
+
+    res, ticks = asyncio.run(asyncio.wait_for(tick(), timeout=60))
+    assert [type(r).__name__ for r in res] == ["ValueError"] * 3
+    assert all("CUDA device or the CPU" in str(r) for r in res)
+    assert ticks == 0 and not calls
+    assert (gf8_cuda.launches, gf8_bytes_cuda.launches) == before
