@@ -11,7 +11,11 @@ Counterpart of ``ceph_tpu/cluster/``.  The port holds so far:
 - ``messenger`` and ``messages``: sessions with replay over asyncio TCP,
   signed frames, and every wire message;
 - ``batcher``: the tick batchers that put the stripe functions (kernels
-  B1 and B2) behind the OSD.
+  B1 and B2) behind the OSD;
+- ``paxos`` (``Elector``, ``Paxos``), ``mon`` (``Monitor``: the map
+  authority, its commands and the pg_temp mint on batched placements),
+  ``monclient`` (``MonTargeter``) and ``mgr`` (``MgrDaemon``: reports,
+  the balance loops of ``ceph_tpu_torch.balance``, ``render_prometheus``).
 
-The monitor, the manager, the OSD and the clients arrive in later slices.
+The OSD, its PGs and backends and the clients arrive in later slices.
 """

@@ -230,6 +230,15 @@ class OSDMap:
         self._tensor = None
         self.osd_addrs: Dict[int, object] = {}
 
+    def set_device(self, device) -> "OSDMap":
+        """Put this map's batched placement on ``device``: a map that
+        arrived pickled carries its sender's device, and a mapper built
+        on another device is dropped (rebuilt here when next used)."""
+        self.device = device
+        if getattr(self._tensor, "device", device) != device:
+            self._tensor = None
+        return self
+
     def invalidate_mappers(self) -> None:
         """Call after mutating the CRUSH map (rules/buckets)."""
         self._scalar = ScalarMapper(self.crush)
@@ -554,29 +563,11 @@ class OSDMap:
 
     # -- whole-pool batched placement --------------------------------------
 
-    def _pool_mapping_row(self, pool: PGPool, pool_id: int, seed: int,
-                          pps_s: int, raw: List[int]):
-        """One seed's host post-pass: the scalar chain after the raw
-        CRUSH placement (nonexistent removal, upmap, up filtering,
-        primary affinity)."""
-        raw = self._remove_nonexistent(pool, raw)
-        pgid = PGid(pool_id, seed)
-        raw = self._apply_upmap(pool, pgid, raw)
-        u = self._raw_to_up(pool, raw)
-        p = self._pick_primary(u)
-        return self._apply_primary_affinity(pps_s, pool, u, p)
-
-    def pool_mapping(self, pool_id: int):
-        """Map every PG of a pool as one batched placement on the device.
-
-        Returns (up (pg_num, size) int64 with CRUSH_ITEM_NONE holes/padding,
-        up_primary (pg_num,) int64).  The host post-passes (nonexistent
-        removal, up filtering, primary pick) run VECTORIZED in numpy —
-        zero per-PG Python on the common path; sparse
-        overrides (upmap entries, non-default primary affinity) re-run
-        the scalar chain for just the affected seeds.  Semantics match
-        the per-PG scalar pipeline exactly (cross-checked in tests).
-        """
+    def _pool_raw(self, pool_id: int):
+        """``pool_raw_up`` and its bookkeeping: (raw_up, lengths, pps).
+        ``lengths[s]`` is the length of ``pg_raw_up``'s list for seed s
+        (firstn rules may place fewer than ``size``), so a caller can tell
+        padding from the list's own entries."""
         pool = self.pools[pool_id]
         seeds = np.arange(pool.pg_num, dtype=np.uint32)
         pps = pool.raw_pg_to_pps_batch(seeds)
@@ -610,6 +601,65 @@ class OSDMap:
             res = res.cpu().numpy()
             rlen = rlen.cpu().numpy()
         size = pool.size
+        res64 = np.asarray(res, dtype=np.int64)[:, :size]
+        rlen64 = np.asarray(rlen, dtype=np.int64)
+        cols = np.arange(size, dtype=np.int64)
+        raw = np.where(cols[None, :] < rlen64[:, None], res64,
+                       CRUSH_ITEM_NONE)
+        # the existence filter, vectorised: a placed id that is not an
+        # existing OSD compacts out of a replicated row (the survivors
+        # keep their order, NONE entries included) and becomes a NONE
+        # hole in place in an erasure row
+        real = raw != CRUSH_ITEM_NONE
+        ok = real & (raw >= 0) & (raw < self.max_osd)
+        ok &= np.asarray(self.osd_exists, dtype=bool)[np.where(ok, raw, 0)]
+        gone = real & ~ok
+        lengths = rlen64.copy()
+        if pool.can_shift_osds():
+            order = np.argsort(gone, axis=1, kind="stable")
+            vals = np.take_along_axis(raw, order, axis=1)
+            kept = ~np.take_along_axis(gone, order, axis=1)
+            raw = np.where(kept, vals, CRUSH_ITEM_NONE)
+            lengths -= gone.sum(axis=1)
+        else:
+            raw = np.where(gone, CRUSH_ITEM_NONE, raw)
+        # sparse upmap overrides re-run the scalar chain per seed (the
+        # folded pg id of seed s < pg_num is s itself)
+        special = {pg.seed for pg in self.pg_upmap
+                   if pg.pool == pool_id and pg.seed < pool.pg_num}
+        special |= {pg.seed for pg in self.pg_upmap_items
+                    if pg.pool == pool_id and pg.seed < pool.pg_num}
+        for s in sorted(special):
+            r = self._remove_nonexistent(
+                pool, [int(v) for v in res64[s, : rlen64[s]]])
+            r = self._apply_upmap(pool, PGid(pool_id, s), r)
+            row = np.full(size, CRUSH_ITEM_NONE, dtype=np.int64)
+            row[: len(r)] = r
+            raw[s] = row
+            lengths[s] = len(r)
+        return raw, lengths, pps
+
+    def pool_raw_up(self, pool_id: int) -> np.ndarray:
+        """``pg_raw_up`` for every PG of a pool: a (pg_num, size) int64
+        array whose row s is ``pg_raw_up(PGid(pool_id, s))`` padded at the
+        end with CRUSH_ITEM_NONE (erasure rows keep their holes in place).
+        One batched placement on the map's device, the existence filter
+        vectorised, the scalar chain only for seeds with upmap entries."""
+        return self._pool_raw(pool_id)[0]
+
+    def pool_mapping(self, pool_id: int):
+        """Map every PG of a pool as one batched placement on the device.
+
+        Returns (up (pg_num, size) int64 with CRUSH_ITEM_NONE holes/padding,
+        up_primary (pg_num,) int64): ``pool_raw_up``, then the up filter
+        and the primary pick VECTORIZED in numpy — zero per-PG Python on
+        the common path; non-default primary affinity re-runs the scalar
+        post-pass for the pool.  Semantics match the per-PG scalar
+        pipeline exactly (cross-checked in tests).
+        """
+        pool = self.pools[pool_id]
+        raw, lengths, pps = self._pool_raw(pool_id)
+        size = pool.size
         aff = self.osd_primary_affinity
         if aff is not None and any(
                 a != CEPH_OSD_DEFAULT_PRIMARY_AFFINITY for a in aff):
@@ -620,34 +670,30 @@ class OSDMap:
                          dtype=np.int64)
             upp = np.full(pool.pg_num, -1, dtype=np.int64)
             for s in range(pool.pg_num):
-                u, p = self._pool_mapping_row(
-                    pool, pool_id, int(s), int(pps[s]),
-                    [int(v) for v in res[s, : rlen[s]]])
+                u = self._raw_to_up(
+                    pool, [int(v) for v in raw[s, : lengths[s]]])
+                u, p = self._apply_primary_affinity(
+                    int(pps[s]), pool, u, self._pick_primary(u))
                 up[s, : len(u)] = u
                 upp[s] = p
             return up, upp
-        # vectorized post-pass: exists/up masking and first-non-NONE
-        # primary pick as whole-pool array ops
-        res64 = np.asarray(res, dtype=np.int64)[:, :size]
-        rlen64 = np.asarray(rlen, dtype=np.int64)
-        cols = np.arange(size, dtype=np.int64)
-        raw = np.where(cols[None, :] < rlen64[:, None], res64,
-                       CRUSH_ITEM_NONE)
+        # vectorized post-pass: up masking and first-non-NONE primary
+        # pick as whole-pool array ops
         valid = (raw != CRUSH_ITEM_NONE) & (raw >= 0) & \
             (raw < self.max_osd)
         alive = np.asarray(self.osd_exists, dtype=bool) & \
             np.asarray(self.osd_up, dtype=bool)
         keep = valid & alive[np.where(valid, raw, 0)]
         if pool.can_shift_osds():
-            # replicated: dead/nonexistent entries compact out,
-            # preserving the order of the survivors (stable sort on the
-            # drop mask == the scalar chain's filtered list)
+            # replicated: down entries compact out, preserving the order
+            # of the survivors (stable sort on the drop mask == the
+            # scalar chain's filtered list)
             order = np.argsort(~keep, axis=1, kind="stable")
             vals = np.take_along_axis(raw, order, axis=1)
             kept = np.take_along_axis(keep, order, axis=1)
             up = np.where(kept, vals, CRUSH_ITEM_NONE)
         else:
-            # erasure: positions are shard slots — dead entries become
+            # erasure: positions are shard slots — down entries become
             # NONE holes in place
             up = np.where(keep, raw, CRUSH_ITEM_NONE)
         has = up != CRUSH_ITEM_NONE
@@ -655,20 +701,6 @@ class OSDMap:
         upp = np.where(has.any(axis=1),
                        up[np.arange(pool.pg_num), first],
                        -1).astype(np.int64)
-        # sparse upmap overrides re-run the scalar chain per seed (the
-        # folded pg id of seed s < pg_num is s itself)
-        special = {pg.seed for pg in self.pg_upmap
-                   if pg.pool == pool_id and pg.seed < pool.pg_num}
-        special |= {pg.seed for pg in self.pg_upmap_items
-                    if pg.pool == pool_id and pg.seed < pool.pg_num}
-        for s in sorted(special):
-            u, p = self._pool_mapping_row(
-                pool, pool_id, s, int(pps[s]),
-                [int(v) for v in res[s, : rlen[s]]])
-            row = np.full(size, CRUSH_ITEM_NONE, dtype=np.int64)
-            row[: len(u)] = u
-            up[s] = row
-            upp[s] = p
         return up, upp
 
     def rebalance_diff(self, pool_id: int, other: "OSDMap"):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement, device mesh and OSD store path on the CUDA cards.
+"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement, device mesh, OSD store path and control plane on the CUDA cards.
 
 Run from the repository root with no arguments:
 
@@ -125,10 +125,34 @@ non-zero if any of them fails:
    to all twelve peers applied and the encode window's share of it, MB/s
    of shard bytes into the stores, the remount time and the
    read-and-verify time;
-8. one launch: a torch.profiler trace of one cauchy ``encode_planar``
+8. the control plane (``ceph_tpu_torch/cluster/{paxos,mon,monclient,
+   mgr}.py`` and ``balance/``, torch ops, no hand-written kernel): three
+   monitors on 127.0.0.1, each with its FileStore in a temporary
+   directory, and a mgr (defaults but ``mgr_balancer_require_clean=0``:
+   no OSD beacons here), all on ``cuda:0``, on
+   ``build_three_level(39, 16, 16)`` with every OSD up and in.  Through
+   the mgr's ``mon_command``: ``osd pool create`` of a replicated size-3
+   pool of 65,536 PGs and of an ISA k8m4 pool of 16,384 PGs (the mon's
+   ``chooseleaf indep 12 type host`` rule), a balancer round that
+   commits, an ``osd pg-upmap-items`` moving all three members of 64 PGs
+   onto three other hosts, the leader stopped and a second round
+   committed on the new leader, and the stopped monitor revived from its
+   store.  Checked: every monitor and the mgr at one epoch with equal
+   pools, upmaps, pg_temp, weights and flags; each round's moves
+   committed as planned, legal, the skew lower; each mint's entries equal
+   to the per-PG scalar mint on 2,000 sampled PGs of each pool, every PG
+   its upmaps touched and the 64 wholesale PGs (64 entries), and
+   ``pool_raw_up`` equal to the scalar chain on the same PGs (the scalar
+   chain in spawned workers); the revived monitor resumed once from its
+   store; no map left the card; every commit inside the mgr's 10 s
+   timeout.  Printed beside the card: election to quorum, each commit
+   from submit to all three applied and its mint (split by pool), each
+   round's plan and commit, the mapper rebuild per deep copy, the longest
+   event-loop block, the failover and the revived monitor's catch-up;
+9. one launch: a torch.profiler trace of one cauchy ``encode_planar``
    call shows exactly one device kernel, B2's staged kernel, and no
    ``pack_blocks_kernel``;
-9. timing: CUDA-event medians of B1 and B2 and of their plain versions at
+10. timing: CUDA-event medians of B1 and B2 and of their plain versions at
    their headline shapes (L2 flushed before each launch), each kernel's
    share of its bound, a same-traffic yardstick (``torch.bitwise_xor`` of
    the two 8 MiB halves of a (64, 262144) uint8 tensor into 8 MiB), the
@@ -145,8 +169,8 @@ non-zero if any of them fails:
    medians), and the wall medians of ``crush_batch_sharded`` and
    ``do_rule_batch`` on the 1,000,000 PGs.
 
-Phases 2, 3, each path of phase 4, phase 5 (a)-(c), (d), (e), phase 6 and
-each pool of phase 7 are main paths: kernel launch counts
+Phases 2, 3, each path of phase 4, phase 5 (a)-(c), (d), (e), phase 6,
+each pool of phase 7 and phase 8 are main paths: kernel launch counts
 are set to 0 just before each and read just after, every kernel of the
 path must have launched, and every launch must have taken the staged
 path, except on the w=32 path, whose encode and 4-erasure decode take the
@@ -155,8 +179,12 @@ kept one; the placement path launches neither kernel and its
 its two, the scorer path's ``balance_candidates_scored`` the
 candidates the round reports, and the mesh path launches neither kernel
 and maps one shard per mesh slot; the store path's pool A launches B1
-and not B2, its pool B launches B2, every launch staged.  The last lines
-are the card's name and power limit, one JSON object describing each
+and not B2, its pool B launches B2, every launch staged; the control
+plane launches neither, and its ``crush_map_calls`` are each mint's 2
+per pool of both maps (0, 2, 4, 4, 4) and each balancer plan's 2 per
+pool for its skews and 1 per pool per optimizer measurement.  Before the
+last lines, one ``phase clock`` line a phase gives its seconds.  The last
+lines are the card's name and power limit, one JSON object describing each
 kernel (B1's and B2's launches summed over every main path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 prints no result and exits non-zero.
 """
@@ -1263,33 +1291,52 @@ def scalar_row(m, pool_id, seed):
     return list(u) + [CRUSH_ITEM_NONE] * (m.pools[pool_id].size - len(u)), p
 
 
-_SCALAR_MAP = None
+_SCALAR_MAPS = None
 
 
-def _scalar_rows_init(blob: bytes) -> None:
-    global _SCALAR_MAP
-    _SCALAR_MAP = pickle.loads(blob)
+def _scalar_rows_init(blobs) -> None:
+    global _SCALAR_MAPS
+    _SCALAR_MAPS = {k: pickle.loads(b) for k, b in blobs.items()}
 
 
 def _scalar_rows(args):
-    pool_id, seeds = args
-    return [scalar_row(_SCALAR_MAP, pool_id, s) for s in seeds]
+    from ceph_tpu_torch.osdmap.osdmap import PGid
+
+    key, pool_id, seeds, raw = args
+    m = _SCALAR_MAPS[key]
+    if raw:
+        return [m.pg_raw_up(PGid(pool_id, s)) for s in seeds]
+    return [scalar_row(m, pool_id, s) for s in seeds]
 
 
-def scalar_rows(m, pool_id, seeds):
-    """``scalar_row`` for every seed, spread over the host's cores (the
+def scalar_row_jobs(blobs, jobs, raw: bool = False):
+    """One scalar row a seed of every (map key, pool, seeds) job, the
+    pickled maps in ``blobs``: the full chain's ``scalar_row``, or
+    ``pg_raw_up`` with ``raw``.  Spread over the host's cores (the
     scalar chain takes milliseconds a PG where tries run out) by a pool
-    of spawned workers that ends with the call."""
+    of spawned workers that ends with the call; {(key, pool): {seed:
+    row}}."""
     import multiprocessing
     import os
 
     n = max(1, min(8, os.cpu_count() or 1))
-    chunks = [c.tolist() for c in np.array_split(np.asarray(seeds), 4 * n)]
+    tasks = [(key, pid, chunk.tolist(), raw) for key, pid, seeds in jobs
+             for chunk in np.array_split(np.asarray(seeds),
+                                         max(1, min(len(seeds), 4 * n)))]
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(n, initializer=_scalar_rows_init,
-                  initargs=(pickle.dumps(m),)) as workers:
-        parts = workers.map(_scalar_rows, [(pool_id, c) for c in chunks])
-    return [row for part in parts for row in part]
+                  initargs=(blobs,)) as workers:
+        parts = workers.map(_scalar_rows, tasks)
+    out = {}
+    for (key, pid, seeds, _raw), rows in zip(tasks, parts):
+        out.setdefault((key, pid), {}).update(zip(seeds, rows))
+    return out
+
+
+def scalar_rows(m, pool_id, seeds):
+    """``scalar_row`` for every seed of one pool of ``m``."""
+    rows = scalar_row_jobs({0: pickle.dumps(m)}, [(0, pool_id, seeds)])
+    return [rows[(0, pool_id)][int(s)] for s in seeds]
 
 
 def check_placement(m, m2, rule, got):
@@ -2313,6 +2360,690 @@ def phase_placement_timing(m, m2, rule, card: str):
     return out
 
 
+# ----------------------------------------------------------- control plane
+
+CP_REP_PGS = 1 << 16
+CP_EC_PGS = 1 << 14
+CP_EC_PROFILE = {"plugin": "isa", "k": "8", "m": "4"}
+CP_WHOLESALE = 64
+CP_SAMPLE = 2000
+CP_BOUND_S = 400.0
+CP_MGR_TIMEOUT_S = 10.0       # the balancer's own mon_command timeout
+
+
+def cp_places(inc) -> bool:
+    """The deltas whose mint reads placements (``Monitor._mint_pg_temp``'s
+    own test, and ``new_down`` for its sweep)."""
+    return bool(inc.new_up or inc.new_weights or inc.new_pools
+                or inc.new_pg_upmap_items or inc.new_crush_hosts
+                or inc.old_osds or inc.new_primary_affinity or inc.new_down)
+
+
+def cp_placement_key(m, pool_id: int) -> bytes:
+    """What ``pg_raw_up`` reads for every PG of one pool, upmaps aside:
+    with equal keys, a PG whose own upmap entries are equal places alike
+    (``_apply_upmap`` reads only the PG's own entries)."""
+    import hashlib
+
+    p = m.pools[pool_id]
+    return hashlib.sha1(pickle.dumps((
+        pool_id, m.max_osd, list(m.osd_exists), list(m.osd_weight),
+        m.crush.rules[p.crush_rule].steps,
+        sorted((b.id, list(b.items), list(b.weights))
+               for b in m.crush.buckets.values()),
+        (p.type, p.size, p.pg_num, p.pgp_num, p.crush_rule,
+         p.hashpspool)))).digest()
+
+
+def cp_seed_upmaps(m, pool_id: int, seed: int):
+    """One PG's own upmap entries: the rest of its ``pg_raw_up`` input."""
+    from ceph_tpu_torch.osdmap.osdmap import PGid
+
+    pg = PGid(pool_id, seed)
+    return (tuple(m.pg_upmap.get(pg, ())),
+            tuple(tuple(x) for x in m.pg_upmap_items.get(pg, ())))
+
+
+def cp_scalar_mint(old, new, inc, pool_id, seed, old_row, new_row):
+    """The pg_temp entry the per-PG mint gives ``seed`` (None: no entry),
+    from the scalar chain's rows of the old and new map."""
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.osdmap.osdmap import PGid
+
+    pgid = PGid(pool_id, seed)
+
+    def live(o):
+        return 0 <= o < new.max_osd and new.osd_exists[o]
+
+    if pgid in inc.new_pg_temp:
+        return None
+    cur = old.pg_temp.get(pgid)
+    if cur is not None and any(live(o) for o in cur):
+        return None
+    new_set = {o for o in new_row if o >= 0}
+    donors = [o for o in old_row if live(o)]
+    if not new_set or not donors or new_set & set(donors):
+        return None
+    if new.pools[pool_id].can_shift_osds():
+        return donors + [o for o in new_row if o >= 0 and o not in donors]
+    return [o if live(o) else CRUSH_ITEM_NONE for o in old_row]
+
+
+class LoopWatch:
+    """The longest time the event loop went without waking a 1 ms timer,
+    by the step it happened in."""
+
+    # the phase's own host work, not a daemon's
+    OWN = ("setup", "wholesale pick")
+
+    def __init__(self):
+        self.step = "setup"
+        self.by_step = {}
+
+    @property
+    def worst(self):
+        """(seconds, step): the longest block while the daemons ran."""
+        return max(((lag, step) for step, lag in self.by_step.items()
+                    if step not in self.OWN), default=(0.0, ""))
+
+    async def run(self):
+        import asyncio
+
+        loop = asyncio.get_running_loop()
+        while True:
+            t0 = loop.time()
+            await asyncio.sleep(0.001)
+            lag = loop.time() - t0 - 0.001
+            if lag > self.by_step.get(self.step, 0.0):
+                self.by_step[self.step] = lag
+
+
+async def cp_wait(pred, what: str, bound: float = 60.0) -> float:
+    """Poll ``pred`` every millisecond; the seconds it took."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > bound:
+            raise AssertionError(f"control plane: {what} after {bound} s")
+        await asyncio.sleep(0.001)
+    return time.perf_counter() - t0
+
+
+def cp_ready(m) -> bool:
+    return not m.stopped and m.is_leader and m.paxos is not None \
+        and m.paxos.active
+
+
+async def control_plane(dev, card: str, reset_counts, gf8_mods):
+    """The path itself: see ``phase_control_plane``."""
+    import asyncio
+    import copy
+    import os
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.balance import scorer
+    from ceph_tpu_torch.cluster.filestore import FileStore
+    from ceph_tpu_torch.cluster.mgr import MgrDaemon
+    from ceph_tpu_torch.cluster.mon import Monitor
+    from ceph_tpu_torch.crush.types import build_three_level
+    from ceph_tpu_torch.osdmap.osdmap import OSDMap
+    from ceph_tpu_torch.utils import Config
+    from ceph_tpu_torch.utils.perf import KERNELS
+
+    t = {}
+    # mgr defaults, with one exception: no OSD runs here, so the health
+    # the balancer gates on shows PG_RECOVERING for every up OSD that
+    # never sent a beacon after a placement change; with the default
+    # mgr_balancer_require_clean=1 every round would be throttled
+    cfg = Config(mgr_balancer_require_clean=0)
+    log("control plane: mgr_balancer_require_clean=0 (no OSD daemons "
+        "beacon here, so every up OSD reads as unclean after a placement "
+        "change and the default gate would throttle every round)")
+    cmap, _ = build_three_level(RACKS, HOSTS_PER_RACK, OSDS_PER_HOST,
+                                numrep=3)
+    blob = pickle.dumps(OSDMap(cmap))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mons_")
+    mons, addrs, tasks = [], [], []
+    mgr = None
+    watch = LoopWatch()
+    records, plans = [], []
+    dstats = [0]
+    inner_stats = scorer.deviation_stats
+    # every whole-pool placement the path makes: (pool, pg_num, seconds)
+    raw_calls = []
+    inner_raw = OSDMap._pool_raw
+
+    def timed_raw(self, pool_id):
+        t0 = time.perf_counter()
+        out = inner_raw(self, pool_id)
+        raw_calls.append((pool_id, self.pools[pool_id].pg_num,
+                          time.perf_counter() - t0))
+        return out
+
+    def counted_stats(*a, **k):
+        dstats[0] += 1
+        return inner_stats(*a, **k)
+
+    def record_mints(mon):
+        inner = mon._mint_pg_temp
+
+        def mint(inc):
+            if not cp_places(inc):
+                return inner(inc)
+            t0 = time.perf_counter()
+            old_blob = pickle.dumps(mon.osdmap)
+            before = copy.deepcopy(inc)
+            calls = KERNELS.get("crush_map_calls")
+            pgs = KERNELS.get("crush_map_pgs")
+            minted = mon.perf.get("mon_pg_temp_minted")
+            r0 = len(raw_calls)
+            t1 = time.perf_counter()
+            inner(inc)
+            t2 = time.perf_counter()
+            records.append({
+                "rank": mon.rank, "epoch": inc.epoch, "old": old_blob,
+                "inc": before, "out": dict(inc.new_pg_temp),
+                "mint_s": t2 - t1, "record_s": t1 - t0,
+                "calls": KERNELS.get("crush_map_calls") - calls,
+                "pgs": KERNELS.get("crush_map_pgs") - pgs,
+                "minted": mon.perf.get("mon_pg_temp_minted") - minted,
+                "raw": raw_calls[r0:],
+                "pools_both": sorted(set(pickle.loads(old_blob).pools)
+                                     & (set(mon.osdmap.pools)
+                                        | set(inc.new_pools)))})
+
+        mon._mint_pg_temp = mint
+
+    def new_mon(rank):
+        store = FileStore(os.path.join(tmp.name, f"mon{rank}"))
+        mon = Monitor(pickle.loads(blob), config=cfg, rank=rank, n_mons=3,
+                      store=store, device=dev)
+        record_mints(mon)
+        return mon
+
+    async def all_applied(epoch, what):
+        return await cp_wait(
+            lambda: all(m.osdmap.epoch >= epoch for m in mons
+                        if not m.stopped), f"{what} never applied on "
+            "every monitor", CP_MGR_TIMEOUT_S * 3)
+
+    async def command(label, cmd):
+        """One command through the mgr's ``mon_command``: (reply, seconds
+        from submit to every live monitor applied, the mint's record)."""
+        watch.step = label
+        n0 = len(records)
+        t0 = time.perf_counter()
+        data = await mgr.mon_command(cmd, timeout=CP_MGR_TIMEOUT_S)
+        mine = records[n0:]
+        epoch = mine[-1]["epoch"] if mine else \
+            max(m.osdmap.epoch for m in mons if not m.stopped)
+        await all_applied(epoch, label)
+        s = time.perf_counter() - t0
+        await cp_wait(lambda: mgr.osdmap.epoch >= epoch,
+                      f"the mgr never saw {label}")
+        return data, s, (mine[-1] if mine else None)
+
+    async def balancer_round(label):
+        watch.step = label
+        n0, p0 = len(records), len(plans)
+        t0 = time.perf_counter()
+        res = await mgr.balancer.tick()
+        total = time.perf_counter() - t0
+        if not res.get("committed") or res["moves"] <= 0 or \
+                not res["skew_after"] < res["skew_before"]:
+            raise AssertionError(f"{label} did not commit a better "
+                                 f"balance: {res}")
+        rec = records[n0:]
+        if len(rec) != 1 or len(plans) != p0 + 1:
+            raise AssertionError(f"{label}: {len(rec)} mints, "
+                                 f"{len(plans) - p0} plans")
+        await all_applied(rec[0]["epoch"], label)
+        applied = time.perf_counter() - t0
+        await cp_wait(lambda: mgr.osdmap.epoch >= rec[0]["epoch"],
+                      f"the mgr never saw {label}")
+        plan = plans[-1]
+        return {"res": res, "plan": plan, "mint": rec[0], "total": total,
+                "applied": applied, "commit": applied - plan["s"]}
+
+    try:
+        tasks.append(asyncio.get_running_loop().create_task(watch.run()))
+        for r in range(3):
+            mons.append(new_mon(r))
+            addrs.append(await mons[r].start())
+        for m in mons:
+            m.set_monmap(addrs)
+        watch.step = "election"
+        t0 = time.perf_counter()
+        await mons[0].begin_elections()
+        await cp_wait(lambda: any(cp_ready(m) for m in mons), "no leader")
+        t["election"] = time.perf_counter() - t0
+        leader = next(m for m in mons if cp_ready(m))
+        mgr = MgrDaemon(addrs, config=cfg, device=dev)
+        inner_plan = mgr.balancer._plan
+
+        def plan(m):
+            old = pickle.dumps(m)     # before the plan mutates its copy
+            t0 = time.perf_counter()
+            calls = KERNELS.get("crush_map_calls")
+            pgs = KERNELS.get("crush_map_pgs")
+            d0 = dstats[0]
+            r0 = len(raw_calls)
+            out = inner_plan(m)
+            torch.cuda.synchronize(dev)
+            plans.append({"s": time.perf_counter() - t0,
+                          "calls": KERNELS.get("crush_map_calls") - calls,
+                          "pgs": KERNELS.get("crush_map_pgs") - pgs,
+                          "dstats": dstats[0] - d0, "changes": out[0],
+                          "raw": raw_calls[r0:],
+                          "pools": len(m.pools), "old": old})
+            return out
+
+        mgr.balancer._plan = plan
+        await mgr.start()
+        await cp_wait(lambda: leader.osdmap.mgr_addr is not None
+                      and mgr.osdmap is not None
+                      and mgr.osdmap.epoch == leader.osdmap.epoch,
+                      "the mgr never registered")
+        log(f"control plane: 3 monitors and a mgr on {dev}, "
+            f"{cmap.max_devices} OSDs up and in; election to quorum "
+            f"{t['election'] * 1e3:.3f} ms, leader mon.{leader.rank}")
+        scorer.deviation_stats = counted_stats
+        OSDMap._pool_raw = timed_raw
+
+        # the counted window: B1, B2 and the crush_map_* counters from 0
+        for mod in gf8_mods:
+            mod.launches = mod.kept_launches = 0
+        reset_counts()
+        t_path = time.perf_counter()
+        rep, t["create rbd"], rec1 = await command(
+            "create rbd", {"prefix": "osd pool create", "pool": "rbd",
+                           "pool_type": "replicated", "size": 3,
+                           "pg_num": CP_REP_PGS})
+        ec, t["create ec"], rec2 = await command(
+            "create ec", {"prefix": "osd pool create", "pool": "ec",
+                          "pool_type": "erasure", "pg_num": CP_EC_PGS,
+                          "ec_profile": dict(CP_EC_PROFILE)})
+        round1 = await balancer_round("balancer round 1")
+
+        # the wholesale remap: every member of 64 PGs of the replicated
+        # pool onto three OSDs of three other hosts, chosen on the host
+        from ceph_tpu_torch.osdmap.balancer import _failure_domains
+        from ceph_tpu_torch.osdmap.osdmap import PGid
+
+        watch.step = "wholesale pick"
+
+        def pick(m):
+            """64 PGs without upmaps or pg_temp, and for each member of
+            each an OSD on another host (scalar chain, on the host)."""
+            dom = _failure_domains(m, m.pools[rep].crush_rule)
+            by_dom = {}
+            for o, d in dom.items():
+                by_dom.setdefault(d, []).append(o)
+            rng = np.random.default_rng(SEED + 40)
+            items, wholesale = {}, {}
+            for s in rng.permutation(CP_REP_PGS).tolist():
+                pg = PGid(rep, s)
+                if pg in m.pg_upmap_items or pg in m.pg_temp:
+                    continue
+                members = m.pg_raw_up(pg)
+                taken = {dom[o] for o in members}
+                doms = [d for d in rng.permutation(sorted(by_dom)).tolist()
+                        if d not in taken][:len(members)]
+                dsts = [int(rng.choice(by_dom[d])) for d in doms]
+                items[f"{rep}.{s}"] = [[a, b] for a, b in zip(members, dsts)]
+                wholesale[s] = (members, dsts)
+                if len(items) == CP_WHOLESALE:
+                    return items, wholesale
+
+        # off the loop: the phase's own host work must not read as a
+        # monitor's loop block
+        snapshot = copy.deepcopy(leader.osdmap)
+        items, wholesale = await asyncio.get_running_loop().run_in_executor(
+            None, pick, snapshot)
+        _, t["wholesale"], rec3 = await command(
+            "wholesale upmap", {"prefix": "osd pg-upmap-items",
+                                "items": items})
+
+        # failover: the leader stops; the survivors elect and the next
+        # balancer round commits on the new leader
+        dead = leader.rank
+        watch.step = "failover"
+        t0 = time.perf_counter()
+        await leader.stop()
+        await cp_wait(lambda: any(cp_ready(m) for m in mons),
+                      "no leader after the failover", 30.0)
+        t["failover election"] = time.perf_counter() - t0
+        leader2 = next(m for m in mons if cp_ready(m))
+        round2 = await balancer_round("balancer round 2")
+        t["failover to commit"] = time.perf_counter() - t0
+
+        # revive the stopped monitor from its store
+        watch.step = "revive"
+        t0 = time.perf_counter()
+        revived = new_mon(dead)
+        await revived.start(*addrs[dead])
+        mons[dead] = revived
+        revived.set_monmap(addrs)
+        await revived.begin_elections()
+        await cp_wait(lambda: revived.leader_rank not in (None, dead),
+                      "the revived monitor found no leader", 30.0)
+        await revived._request_map_sync()
+        live = [m for m in mons if m is not revived]
+        await cp_wait(lambda: revived.osdmap.epoch == max(
+            m.osdmap.epoch for m in live), "the revived monitor never "
+            "caught up", 30.0)
+        t["revive catch-up"] = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        t["path"] = time.perf_counter() - t_path
+        counts = KERNELS.dump()["device_kernels"]
+        launches = [(mod.launches, mod.kept_launches) for mod in gf8_mods]
+        scorer.deviation_stats = inner_stats
+        OSDMap._pool_raw = inner_raw
+        # every monitor and the mgr at one epoch (the revival can start
+        # an election, whose leader may commit nothing or a clog flush)
+        await cp_wait(lambda: len({m.osdmap.epoch for m in mons}
+                                  | {mgr.osdmap.epoch}) == 1,
+                      "the monitors and the mgr never converged", 30.0)
+        leader3 = next((m for m in mons if cp_ready(m)), leader2)
+        return {"t": t, "mons": mons, "mgr": mgr, "leader": leader3,
+                "dead": dead, "records": records, "plans": plans,
+                "rounds": (round1, round2), "recs": (rec1, rec2, rec3),
+                "pools": (rep, ec), "wholesale": wholesale,
+                "counts": counts, "launches": launches,
+                "revived": revived, "loop": watch.worst,
+                "resumes": revived.perf.get("mon_store_resumes")}
+    finally:
+        scorer.deviation_stats = inner_stats
+        OSDMap._pool_raw = inner_raw
+        for task in tasks:
+            task.cancel()
+        if mgr is not None:
+            await mgr.stop()
+        for m in mons:
+            if not m.stopped:
+                await m.stop()
+        tmp.cleanup()
+
+
+def cp_state(m):
+    """What every monitor and the mgr must agree on."""
+    return (m.epoch, sorted(m.pools.items()),
+            sorted((pg, [tuple(x) for x in v])
+                   for pg, v in m.pg_upmap_items.items()),
+            sorted((pg, list(v)) for pg, v in m.pg_temp.items()),
+            list(m.osd_weight), sorted(m.flags))
+
+
+def check_control_plane(out, dev, card: str):
+    """Every check of the control-plane path, each a hard failure."""
+    import copy
+
+    import torch
+
+    from ceph_tpu_torch.crush.mapper import TensorMapper
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.osdmap.balancer import _failure_domains
+    from ceph_tpu_torch.osdmap.osdmap import PGid
+
+    t0 = time.perf_counter()
+    mons, mgr, leader = out["mons"], out["mgr"], out["leader"]
+    rep, ec = out["pools"]
+    # one state everywhere
+    states = [cp_state(m.osdmap) for m in mons] + [cp_state(mgr.osdmap)]
+    if any(st != states[0] for st in states):
+        raise AssertionError("the monitors and the mgr disagree on the map")
+    if out["resumes"] != 1:
+        raise AssertionError(f"the revived monitor resumed "
+                             f"{out['resumes']} times")
+    for m in [x.osdmap for x in mons] + [mgr.osdmap]:
+        if m.scalar_fallbacks or m.device != dev or \
+                TensorMapper.unsupported_reason(m.crush) is not None:
+            raise AssertionError("a control-plane map left the card")
+    if any(n for n, _k in out["launches"]):
+        raise AssertionError(f"the control plane launched B1/B2: "
+                             f"{out['launches']}")
+    final = leader.osdmap
+    # the rounds' moves: committed as planned, and legal
+    for i, rnd in enumerate(out["rounds"], 1):
+        old = pickle.loads(rnd["plan"]["old"])
+        changes = rnd["plan"]["changes"]
+        if len(changes) != rnd["res"]["moves"] or not changes:
+            raise AssertionError(f"round {i}: {rnd['res']} vs {changes}")
+        committed = {pg: [tuple(p) for p in v] for pg, v in
+                     rnd["mint"]["inc"].new_pg_upmap_items.items()}
+        if committed != {pg: [tuple(p) for p in v]
+                         for pg, v in changes.items()}:
+            raise AssertionError(f"round {i} committed other items")
+        for pg, pairs in changes.items():
+            dom = _failure_domains(old, old.pools[pg.pool].crush_rule)
+            members = old.pg_raw_up(pg)
+            for src, dst in pairs:
+                others = {dom[o] for o in members
+                          if o != src and o != CRUSH_ITEM_NONE}
+                if src not in members or dst in members or \
+                        dom[dst] in others:
+                    raise AssertionError(f"round {i}: illegal move of {pg}:"
+                                         f" {src}->{dst}, {members}")
+            if [tuple(p) for p in final.pg_upmap_items.get(pg, [])] != \
+                    [tuple(p) for p in pairs]:
+                raise AssertionError(f"round {i}: {pg} not as committed")
+    # the wholesale commit minted exactly its 64 PGs
+    rec3 = out["recs"][2]
+    minted = {pg.seed: v for pg, v in rec3["out"].items() if v}
+    if set(minted) != set(out["wholesale"]) or \
+            rec3["minted"] != CP_WHOLESALE or \
+            any(minted[s] != a + b for s, (a, b) in
+                out["wholesale"].items()):
+        raise AssertionError(f"the wholesale commit minted "
+                             f"{sorted(minted)[:8]}...")
+    # the batched calls: 2 per pool of both maps a mint, and each plan's
+    # 2 per pool for its skews and 1 per pool per optimizer iteration
+    want_calls = [0, 2, 4, 4, 4]
+    got_calls = [r["calls"] for r in out["records"]]
+    if got_calls != want_calls:
+        raise AssertionError(f"mint batched calls {got_calls}, want "
+                             f"{want_calls}")
+    for p in out["plans"]:
+        if p["calls"] != p["pools"] * (2 + p["dstats"]):
+            raise AssertionError(f"a plan made {p['calls']} batched calls "
+                                 f"({p['dstats']} measurements)")
+    both = 2 * (CP_REP_PGS + CP_EC_PGS)
+    if [r["pgs"] for r in out["records"]] != \
+            [0, 2 * CP_REP_PGS, both, both, both]:
+        raise AssertionError("a mint mapped other PGs than its pools'")
+    counts = out["counts"]
+    total = sum(got_calls) + sum(p["calls"] for p in out["plans"])
+    pgs = sum(r["pgs"] for r in out["records"]) + \
+        sum(p["pgs"] for p in out["plans"])
+    if counts.get("crush_map_calls", 0) != total or \
+            counts.get("crush_map_pgs", 0) != pgs or \
+            counts.get("crush_map_pad_lanes", 0):
+        raise AssertionError(f"crush counters {counts}, want {total} calls"
+                             f" of {pgs} PGs and no padded lane")
+    # each mint against the per-PG scalar chain: 2,000 sampled seeds of
+    # every pool, every seed its delta's upmaps touched, the wholesale 64;
+    # and pool_raw_up (on the card) against the same rows
+    rng = np.random.default_rng(SEED + 41)
+    samples = {rep: set(rng.choice(CP_REP_PGS, CP_SAMPLE,
+                                   replace=False).tolist()),
+               ec: set(rng.choice(CP_EC_PGS, CP_SAMPLE,
+                                  replace=False).tolist())}
+    # a PG's scalar row is computed once for each distinct input it has
+    # across the mints' maps (most PGs keep theirs from map to map)
+    blobs, wanted, checks = {}, {}, []
+    for rec in out["records"]:
+        old = pickle.loads(rec["old"])
+        new = copy.deepcopy(old)
+        new.apply_incremental(copy.deepcopy(rec["inc"]))
+        blob_key = len(blobs)
+        blobs[blob_key] = pickle.dumps(old)
+        blobs[blob_key + 1] = pickle.dumps(new)
+        for pid in rec["pools_both"]:
+            seeds = set(samples[pid]) | {
+                pg.seed for pg in rec["inc"].new_pg_upmap_items
+                if pg.pool == pid}
+            if pid == rep and rec is rec3:
+                seeds |= set(out["wholesale"])
+            refs = []
+            for mk, mp in ((blob_key, old), (blob_key + 1, new)):
+                base = cp_placement_key(mp, pid)
+                ref = {}
+                for sd in seeds:
+                    rk = (base, pid, sd, cp_seed_upmaps(mp, pid, sd))
+                    wanted.setdefault(rk, mk)
+                    ref[sd] = rk
+                refs.append(ref)
+            checks.append((rec, old, new, refs, pid, sorted(seeds)))
+    jobs = {}
+    for (_base, pid, sd, _up), mk in wanted.items():
+        jobs.setdefault((mk, pid), set()).add(sd)
+    blobs = {mk: b for mk, b in blobs.items()
+             if any(k == mk for k, _p in jobs)}
+    by_job = scalar_row_jobs(blobs, [(mk, pid, sorted(sds)) for
+                                     (mk, pid), sds in jobs.items()],
+                             raw=True)
+    row_of = {rk: by_job[(mk, rk[1])][rk[2]] for rk, mk in wanted.items()}
+    scalar_s = time.perf_counter() - t0
+    n_seeds = n_raw = 0
+    # pool_raw_up on the card against the same rows, on the final map
+    # (the last mint's new map places as it does)
+    last = {c[4]: c for c in checks if c[0] is checks[-1][0]}
+    for pid in (rep, ec):
+        got = final.pool_raw_up(pid)
+        size = got.shape[1]
+        _rec, _old, _new, refs, _pid, seeds = last[pid]
+        for sd in seeds:
+            row = row_of[refs[1][sd]]
+            if got[sd].tolist() != row + [CRUSH_ITEM_NONE] * (size - len(row)):
+                raise AssertionError(f"pool_raw_up {pid}.{sd}: "
+                                     f"{got[sd].tolist()} != {row}")
+            n_raw += 1
+    for rec, old, new, (ro, rn), pid, seeds in checks:
+        for s in seeds:
+            want = cp_scalar_mint(old, new, rec["inc"], pid, s,
+                                  row_of[ro[s]], row_of[rn[s]])
+            got = rec["out"].get(PGid(pid, s))
+            if PGid(pid, s) in rec["inc"].new_pg_temp:
+                continue
+            if (want or None) != (got or None):
+                raise AssertionError(f"mint at epoch {rec['epoch']} PG "
+                                     f"{pid}.{s}: {got} != scalar {want}")
+            n_seeds += 1
+    # the mapper rebuild each deep copy pays (the mint's new map, the
+    # balancer's scratch), on the final map
+    sync = torch.cuda.synchronize
+    reps = []
+    for _ in range(3):
+        sync()
+        a = time.perf_counter()
+        c = copy.deepcopy(final)
+        b = time.perf_counter()
+        c.tensor_mapper
+        sync()
+        reps.append((b - a, time.perf_counter() - b))
+    copy_s = statistics.median(r[0] for r in reps)
+    build_s = statistics.median(r[1] for r in reps)
+    log(f"control plane: every monitor and the mgr at epoch "
+        f"{final.epoch} with equal pools, upmaps, pg_temp, weights and "
+        f"flags; {n_seeds} minted-or-not PGs equal the per-PG scalar mint "
+        f"and {n_raw} pool_raw_up rows of the final map the scalar chain "
+        f"({len(row_of)} scalar rows in {scalar_s:.3f} s on the host); "
+        f"the wholesale commit minted its {CP_WHOLESALE} PGs; the revived "
+        f"mon resumed from its store once; B1/B2 launches 0; checks "
+        f"{time.perf_counter() - t0:.3f} s")
+    return {"copy_s": copy_s, "build_s": build_s}
+
+
+def phase_control_plane(card: str, reset_counts, gf8_mods, dev=None):
+    """The control plane on the card (``ceph_tpu_torch/cluster/{paxos,
+    mon,monclient,mgr}.py``, ``balance/``): three monitors on 127.0.0.1,
+    each with its FileStore in a temporary directory, and a mgr, all on
+    ``cuda:0``, on ``build_three_level(39, 16, 16)`` (9,984 OSDs up and
+    in).  Through the mgr's ``mon_command``: a replicated size-3 pool of
+    65,536 PGs, an ISA k8m4 pool of 16,384 PGs on the mon's ``chooseleaf
+    indep 12 type host`` rule, a balancer round that commits, an explicit
+    ``osd pg-upmap-items`` that moves all three members of 64 PGs onto
+    three other hosts (the mint makes 64 entries), the leader stopped and
+    a second round committed on the new leader, and the stopped monitor
+    revived from its store.  Counted from 0 just before the first create,
+    read after the revival: B1 and B2 launch 0 times; ``crush_map_calls``
+    is each mint's 2 per pool in both maps (0, 2, 4, 4, 4: the first
+    create's pool is new, so its mint reads no placement) plus each
+    balancer plan's 2 per pool for its skews and 1 per pool per optimizer
+    measurement, and no lane is padded.  ``dev`` (``cuda:0`` unless
+    named) is for a rehearsal on the CPU."""
+    import asyncio
+
+    import torch
+
+    t0 = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    out = asyncio.run(asyncio.wait_for(
+        control_plane(dev, card, reset_counts, gf8_mods), CP_BOUND_S))
+    counts = out["counts"]
+    log(f"main path (control plane): B1 launches {out['launches'][0][0]}, "
+        f"B2 launches {out['launches'][1][0]}; counters "
+        f"{json.dumps(counts, sort_keys=True)}")
+    extra = check_control_plane(out, dev, card)
+    t = out["t"]
+    r1, r2 = out["rounds"]
+    rec1, rec2, rec3 = out["recs"]
+    ms = lambda s: f"{s * 1e3:.3f} ms"  # noqa: E731
+    lag, where = out["loop"]
+    log(f"control plane [{card}]: election to quorum "
+        f"{ms(t['election'])}; create rbd ({CP_REP_PGS} PGs) "
+        f"{ms(t['create rbd'])} to all three applied, its mint "
+        f"{ms(rec1['mint_s'])} (no placement read); create ec "
+        f"({CP_EC_PGS} PGs) {ms(t['create ec'])}, mint "
+        f"{ms(rec2['mint_s'])}")
+    def split(rec):
+        """A mint's or a plan's whole-pool placements by pool, and the
+        rest (deep copy, apply, masks, scoring)."""
+        by = {}
+        for pid, n, sec in rec["raw"]:
+            by.setdefault((pid, n), []).append(sec)
+        parts = [f"pool {pid} ({n} PGs) " + "/".join(
+            f"{x * 1e3:.3f}" for x in v) + " ms"
+            for (pid, n), v in sorted(by.items())]
+        rest = rec.get("mint_s", rec.get("s")) - sum(
+            sec for _p, _n, sec in rec["raw"])
+        return "; ".join(parts + [f"rest {rest * 1e3:.3f} ms"])
+
+    for label, rec in (("create ec mint", rec2), ("wholesale mint", rec3),
+                       ("round 1 mint", r1["mint"]),
+                       ("round 1 plan", r1["plan"]),
+                       ("round 2 mint", r2["mint"]),
+                       ("round 2 plan", r2["plan"])):
+        log(f"control plane [{card}]: {label}: {split(rec)}")
+    for i, r in enumerate((r1, r2), 1):
+        log(f"control plane [{card}]: balancer round {i}: "
+            f"{r['res']['moves']} moves, skew {r['res']['skew_before']} -> "
+            f"{r['res']['skew_after']}, {r['plan']['dstats']} measurements; "
+            f"scorer (plan) {ms(r['plan']['s'])}, commit {ms(r['commit'])} "
+            f"to all applied (mint {ms(r['mint']['mint_s'])}), round "
+            f"{ms(r['applied'])}")
+    log(f"control plane [{card}]: wholesale upmap of {CP_WHOLESALE} PGs "
+        f"{ms(t['wholesale'])} to all applied, mint {ms(rec3['mint_s'])} "
+        f"({rec3['minted']} entries); mapper rebuild per deep copy "
+        f"{ms(extra['build_s'])} (the copy itself {ms(extra['copy_s'])}); "
+        f"longest loop block {ms(lag)} (in {where}); failover: election "
+        f"{ms(t['failover election'])}, to the next commit "
+        f"{ms(t['failover to commit'])}; revived mon's catch-up "
+        f"{ms(t['revive catch-up'])}; the path {t['path']:.3f} s, the "
+        f"phase {time.perf_counter() - t0:.3f} s")
+    # the mgr gives a command up after CP_MGR_TIMEOUT_S (then retries):
+    # every commit, from submit to all three monitors applied, lands first
+    slowest = max([t["create rbd"], t["create ec"], t["wholesale"],
+                   r1["commit"], r2["commit"]])
+    if slowest > CP_MGR_TIMEOUT_S:
+        raise AssertionError(f"a commit took {slowest:.3f} s, past the "
+                             f"mgr's {CP_MGR_TIMEOUT_S} s timeout")
+    return out
+
+
 def card_name() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2334,6 +3065,11 @@ def main() -> int:
     from ceph_tpu_torch.ec import factory
     from ceph_tpu_torch.ops import _build, gf8_bytes_cuda, gf8_cuda
     from ceph_tpu_torch.utils.perf import KERNELS
+
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -2364,10 +3100,12 @@ def main() -> int:
         assert codec.device.type == "cuda"
     assert {layer.erasure_code.device.type for layer in lrc.layers} == \
         {"cuda"}
+    mark("build and codecs")
     b1_err = phase_kernel(isa, rng)
     b1_err = max(b1_err, phase_kernel_b1_codecs(
         shec, lrc, [c for c, _ in wide.values()], rng))
     b2_err = phase_kernel_b2(cauchy, rng)
+    mark("kernel checks")
 
     def reset_counts():
         for mod in (gf8_cuda, gf8_bytes_cuda):
@@ -2393,6 +3131,7 @@ def main() -> int:
         raise AssertionError("the ISA path never launched kernel B1")
     if isa_kept:
         raise AssertionError("an ISA main-path launch took the kept path")
+    mark("ISA path")
 
     # main path of the jerasure slice
     reset_counts()
@@ -2413,6 +3152,7 @@ def main() -> int:
     if j_kept:
         raise AssertionError("a jerasure main-path launch took the kept path")
     b1_launches += j_b1
+    mark("jerasure path")
 
     # the main paths of the erasure-code slice: SHEC planar at rest, LRC
     # and reed_sol_van at w=16 and w=32 byte at rest, all on B1; each
@@ -2440,6 +3180,7 @@ def main() -> int:
                 f"the {label} path took the kept path "
                 f"{gf8_cuda.kept_launches} times")
         b1_launches += gf8_cuda.launches
+    mark("erasure-code paths")
 
     # the placement main path: CRUSH and the OSDMap pipeline,
     # torch ops only (no hand-written kernel on this path)
@@ -2459,6 +3200,7 @@ def main() -> int:
     if gf8_cuda.launches or gf8_bytes_cuda.launches:
         raise AssertionError("the placement path launched an EC kernel")
     check_placement(pmap, pmap2, crush_rule, placed)
+    mark("placement")
 
     # the C1 path: ROADMAP's repro and a 9,984-OSD erasure pool on
     # chooseleaf indep type 0, counted from 0 just before, read just after
@@ -2474,6 +3216,7 @@ def main() -> int:
         raise AssertionError(f"C1 counters are not {want}")
     if gf8_cuda.launches or gf8_bytes_cuda.launches:
         raise AssertionError("the C1 path launched an EC kernel")
+    mark("C1")
 
     # the balancer scorer path (its own counted window inside)
     scored_map, split, before, changes, _ = phase_scorer(
@@ -2483,6 +3226,7 @@ def main() -> int:
     check_scorer(scored_map, split, before, changes, crush_rule, card)
     del scored_map, split, before
     phase_scorer_small()
+    mark("scorer")
 
     # the mesh path: the sharded EC engine and the sharded placement over
     # every visible card (or eight slots of one), counted from 0 just
@@ -2501,6 +3245,7 @@ def main() -> int:
     if counts.get("crush_map_calls", 0) != mesh_out["slots"]:
         raise AssertionError("the sharded placement did not map one shard "
                              "per mesh slot")
+    mark("mesh")
 
     # the OSD store path: the port's batchers, messenger and stores on
     # codecs and a verify device named by index (the ticks run in executor
@@ -2540,6 +3285,12 @@ def main() -> int:
         raise AssertionError("a store-path launch took the kept path")
     b1_launches += a_b1 + b_b1
     b2_launches += a_b2 + b_b2
+    mark("store path")
+
+    # the control plane: monitors and mgr on the card, its own counted
+    # window inside (no EC kernel may launch there)
+    phase_control_plane(card, reset_counts, (gf8_cuda, gf8_bytes_cuda))
+    mark("control plane")
 
     phase_one_launch(cauchy, cdata)
     yard_ms = phase_yardstick(card)
@@ -2554,6 +3305,10 @@ def main() -> int:
     placement_s = phase_placement_timing(pmap, pmap2, crush_rule, card)
     phase_mesh_timing(isa, pmap, crush_rule, mesh_ref, mesh_out,
                       placement_s["default chunk"], card)
+    mark("timing")
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        log(f"phase clock: {name} {b - a:.3f} s")
+    log(f"phase clock: total {marks[-1][1] - marks[0][1]:.3f} s")
     log(card)
     kernels = [{
         "name": "B1 planar GF(2) matmul",

@@ -10,7 +10,9 @@
   versions;
 - a ``ReadBatcher`` whose OSD names no device verifies on CUDA, and raises
   where there is none; an ``EncodeBatcher`` tick of a codec off the CPU
-  never answers with the plain version of B1 or B2.
+  never answers with the plain version of B1 or B2;
+- a ``Monitor`` and a ``MgrDaemon`` that name no device run on CUDA, and
+  raise where there is none.
 """
 
 import os
@@ -77,6 +79,11 @@ def test_import_leaves_jax_and_reference_out():
         "import ceph_tpu_torch.cluster.messenger\n"
         "import ceph_tpu_torch.cluster.messages\n"
         "import ceph_tpu_torch.cluster.batcher\n"
+        "import ceph_tpu_torch.cluster.monclient, ceph_tpu_torch.cluster.paxos\n"
+        "import ceph_tpu_torch.cluster.mon, ceph_tpu_torch.cluster.mgr\n"
+        "import ceph_tpu_torch.balance.balancer\n"
+        "import ceph_tpu_torch.balance.autoscaler\n"
+        "import ceph_tpu_torch.balance.reshape\n"
         "import tempfile\n"
         "from ceph_tpu_torch.cluster.bluestore import BlueStore\n"
         "from ceph_tpu_torch.cluster.store import Transaction\n"
@@ -94,6 +101,13 @@ def test_import_leaves_jax_and_reference_out():
         ".cephx_context('osd.0').ensure_ticket()\n"
         "from ceph_tpu_torch.osdmap.osdmap import build_simple_osdmap\n"
         "build_simple_osdmap(device='cpu').pool_mapping(1)\n"
+        "build_simple_osdmap(device='cpu').pool_raw_up(1)\n"
+        "from ceph_tpu_torch.cluster.mon import Monitor\n"
+        "from ceph_tpu_torch.cluster.mgr import MgrDaemon\n"
+        "from ceph_tpu_torch.osdmap.osdmap import Incremental\n"
+        "mon = Monitor(build_simple_osdmap(device='cpu'), device='cpu')\n"
+        "mon._mint_pg_temp(Incremental(epoch=3, new_weights={0: 0}))\n"
+        "MgrDaemon(('127.0.0.1', 1), device='cpu')\n"
         "from ceph_tpu_torch.balance import calc_pg_upmaps_vectorized\n"
         "calc_pg_upmaps_vectorized(build_simple_osdmap(device='cpu'),"
         " engine='device')\n"
@@ -419,3 +433,29 @@ def test_encode_batcher_tick_off_the_cpu_never_runs_plain_kernels(
     assert all("CUDA device or the CPU" in str(r) for r in res)
     assert ticks == 0 and not calls
     assert (gf8_cuda.launches, gf8_bytes_cuda.launches) == before
+
+
+def test_monitor_and_mgr_default_to_cuda_and_refuse_cpu_fallback(
+        monkeypatch):
+    """The monitor and the mgr, asked for no device, want CUDA and raise
+    without it; with a card they name it by index and put every map they
+    take in on it."""
+    from ceph_tpu_torch.cluster.mgr import MgrDaemon
+    from ceph_tpu_torch.cluster.mon import Monitor
+    from ceph_tpu_torch.osdmap.osdmap import build_simple_osdmap
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Monitor(build_simple_osdmap(8, 2, 16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Monitor(build_simple_osdmap(8, 2, 16), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MgrDaemon(("127.0.0.1", 1))
+    mon = Monitor(build_simple_osdmap(8, 2, 16), device="cpu")
+    assert mon.device.type == mon.osdmap.device.type == "cpu"
+    assert MgrDaemon(("127.0.0.1", 1), device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    mon = Monitor(build_simple_osdmap(8, 2, 16, device="cpu"))
+    assert mon.device == mon.osdmap.device == torch.device("cuda", 0)
+    assert MgrDaemon(("127.0.0.1", 1)).device == torch.device("cuda", 0)
