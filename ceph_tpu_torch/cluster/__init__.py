@@ -17,5 +17,17 @@ Counterpart of ``ceph_tpu/cluster/``.  The port holds so far:
   ``monclient`` (``MonTargeter``) and ``mgr`` (``MgrDaemon``: reports,
   the balance loops of ``ceph_tpu_torch.balance``, ``render_prometheus``).
 
-The OSD, its PGs and backends and the clients arrive in later slices.
+- the OSD (``osd``: ``OSDDaemon``) with its PG state and log (``pg``,
+  ``pglog``), backends (``backend_replicated``, ``backend_ec``: encode,
+  decode, verify and re-encode through the batchers on kernels B1 and
+  B2), client ops, snapshots, object classes and cache tiering
+  (``client_ops``, ``snaps``, ``objclass``, ``tiering``), recovery and
+  scrub, the op shards and their QoS queue (``sharded_wq``,
+  ``dmclock``);
+- ``objecter`` (``Objecter``, ``RadosClient``, ``IoCtx``) and ``vstart``
+  (``start_cluster``, ``Cluster``): a whole in-process cluster on one
+  device.
+
+The MDS, the file system, RBD, RGW and the client tools arrive in a
+later slice.
 """

@@ -123,10 +123,14 @@ def render_prometheus(daemons: Dict[str, Dict]) -> str:
 
 class MgrDaemon(Dispatcher):
     def __init__(self, mon_addr, config: Optional[Config] = None,
-                 rank: int = 0, device=None):
+                 rank: int = 0, device=None, placements=None):
         """``device``: where the balance loops' placement and scoring run
-        (CUDA unless the caller names the CPU; raises without a card)."""
+        (CUDA unless the caller names the CPU; raises without a card).
+        ``placements``: a raw-placement cache the maps this mgr takes in
+        share with the other daemons of an in-process cluster
+        (``vstart.PlacementCache``), or None."""
         self.device = resolve_device_index(device)
+        self.placements = placements
         self.rank = rank
         # per-daemon config copy: injectargs on one daemon must never
         # leak into another (each reference daemon owns its md_config_t)
@@ -390,7 +394,8 @@ class MgrDaemon(Dispatcher):
         if isinstance(msg, M.MOSDMapMsg):
             newmap = pickle.loads(msg.osdmap_blob)
             if self.osdmap is None or newmap.epoch >= self.osdmap.epoch:
-                self.osdmap = newmap.set_device(self.device)
+                self.osdmap = newmap.set_device(self.device,
+                                                self.placements)
             return True
         if isinstance(msg, M.MOSDIncMapMsg):
             m = self.osdmap

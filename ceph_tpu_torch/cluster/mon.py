@@ -59,13 +59,18 @@ from ceph_tpu_torch.utils.device import resolve_device_index, run_on
 
 class Monitor(Dispatcher):
     def __init__(self, osdmap: OSDMap, config: Optional[Config] = None,
-                 rank: int = 0, n_mons: int = 1, store=None, device=None):
+                 rank: int = 0, n_mons: int = 1, store=None, device=None,
+                 placements=None):
         """``store``: an ObjectStore backing the MonitorDBStore analog
         (reference src/mon/MonitorDBStore.h: mon state as a kv database);
         committed map state persists and start() resumes from it.
         ``device``: where this monitor's placement work runs (CUDA unless
-        the caller names the CPU; raises without a card)."""
+        the caller names the CPU; raises without a card).
+        ``placements``: a raw-placement cache this monitor's maps share
+        with the other daemons of an in-process cluster
+        (``vstart.PlacementCache``), or None."""
         self.device = resolve_device_index(device)
+        self.placements = placements
         self.rank = rank
         self.n_mons = n_mons
         self.store = store
@@ -73,7 +78,7 @@ class Monitor(Dispatcher):
         # per-daemon config copy: injectargs on one daemon must never
         # leak into another (each reference daemon owns its md_config_t)
         self.config = Config(**config.show()) if config else Config()
-        self.osdmap = osdmap.set_device(self.device)
+        self.osdmap = osdmap.set_device(self.device, placements)
         self.messenger = Messenger(
             EntityName("mon", rank),
             secret=self.config.auth_secret(),
@@ -188,7 +193,8 @@ class Monitor(Dispatcher):
             blob = self.db.get("osdmap", "latest")
             if blob is not None:
                 # resume the committed map (MonitorDBStore refresh)
-                self.osdmap = pickle.loads(blob).set_device(self.device)
+                self.osdmap = pickle.loads(blob).set_device(
+                    self.device, self.placements)
                 self.perf.inc("mon_store_resumes")
             clog_blob = self.db.get("clog", "recent")
             if clog_blob is not None:
@@ -721,7 +727,7 @@ class Monitor(Dispatcher):
         if not placement and not inc.new_down:
             return
         old = self.osdmap
-        new = copy.deepcopy(old)
+        new = copy.deepcopy(old).set_device(self.device, self.placements)
         new.apply_incremental(copy.deepcopy(inc))
         # DOWN-BLIND on both sides: the mint reasons about data LOCATION,
         # and a beacon blip marking an OSD down does not move its bytes
@@ -915,7 +921,7 @@ class Monitor(Dispatcher):
         if isinstance(msg, M.MOSDMapMsg):
             newmap = pickle.loads(msg.osdmap_blob)
             if newmap.epoch > self.osdmap.epoch:
-                self.osdmap = newmap.set_device(self.device)
+                self.osdmap = newmap.set_device(self.device, self.placements)
                 self.perf.inc("mon_map_syncs")
                 await self._persist_latest()
             return True

@@ -1,0 +1,184 @@
+"""PG log: the per-PG ordered mutation record enabling delta resync.
+
+Counterpart of ``ceph_tpu/cluster/pglog.py``.
+
+Behavioral mirror of the reference's pg_log_t / PGLog machinery
+(src/osd/osd_types.h pg_log_entry_t; src/osd/PG.h:1994-2498 peering
+statechart GetInfo/GetLog/GetMissing; doc/dev/osd_internals/pg.rst): every
+mutation appends an (eversion, op, oid) entry to a bounded log; on map
+change the primary elects the authoritative log (max last_update across
+the acting set), and stale members resynchronize by LOG DELTA when their
+last_update lies inside the auth log window — pushing only the objects
+named by the missing entries — falling back to full-inventory BACKFILL
+when they have fallen behind the log tail.
+
+eversion = (epoch, seq): the map epoch when the op was performed plus a
+per-PG monotonically increasing sequence (reference eversion_t).  seq
+never resets, so versions totally order all mutations of a PG.
+
+Device angle: none — this is pure control-plane state; the data it moves is
+reconstructed by the batched device decode/encode paths in the OSD.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+Eversion = Tuple[int, int]
+ZERO: Eversion = (0, 0)
+
+
+@dataclass
+class LogEntry:
+    """pg_log_entry_t analog."""
+
+    op: str                       # "modify" | "delete"
+    oid: str
+    version: Eversion
+    prior_version: Eversion = ZERO
+    # primary's last_complete at append time: replicas learn the commit
+    # watermark from the entry stream and prune their rollback journal
+    # up to it (reference min_last_complete_ondisk piggybacking)
+    committed: Eversion = ZERO
+    # originating client reqid (reference pg_log_entry_t::reqid): entries
+    # replicate to peers, so a NEW primary can refuse to re-execute a
+    # resent non-idempotent op whose effect its log already records —
+    # the in-memory reqid_replies cache is primary-local and dies with it
+    client_reqid: Optional[Tuple] = None
+
+
+@dataclass
+class PGLog:
+    """Bounded ordered entry list covering versions (tail, head]."""
+
+    tail: Eversion = ZERO
+    entries: List[LogEntry] = field(default_factory=list)
+    max_entries: int = 500
+
+    @property
+    def head(self) -> Eversion:
+        return self.entries[-1].version if self.entries else self.tail
+
+    def append(self, entry: LogEntry) -> None:
+        assert entry.version > self.head, (entry.version, self.head)
+        self.entries.append(entry)
+        rq = getattr(entry, "client_reqid", None)
+        if rq is not None and getattr(self, "_reqids", None) is not None:
+            ent = self._reqids.get(rq)
+            if ent is None:
+                self._reqids[rq] = [1, entry.version]
+            else:
+                ent[0] += 1
+                ent[1] = entry.version  # append is monotonic: newest
+
+    def trim(self) -> List[LogEntry]:
+        """Drop oldest entries beyond max_entries, advancing the tail;
+        returns the dropped entries (reference PGLog::trim to
+        osd_min/max_pg_log_entries)."""
+        excess = len(self.entries) - self.max_entries
+        if excess <= 0:
+            return []
+        dropped = self.entries[:excess]
+        self.tail = self.entries[excess - 1].version
+        del self.entries[:excess]
+        idx = getattr(self, "_reqids", None)
+        if idx is not None:
+            # trim drops the OLDEST entries, so a reqid's newest logged
+            # version survives in the index until its count hits zero
+            for e in dropped:
+                rq = getattr(e, "client_reqid", None)
+                if rq is not None and rq in idx:
+                    idx[rq][0] -= 1
+                    if idx[rq][0] <= 0:
+                        del idx[rq]
+        return dropped
+
+    def has_reqid(self, reqid) -> bool:
+        """O(1) dup lookup over the entries' client reqids (reference
+        pg_log dup index).  The index builds lazily so wholesale log
+        replacements (peering adoption, store load, log push — all of
+        which construct a NEW PGLog) can never serve a stale view."""
+        idx = getattr(self, "_reqids", None)
+        if idx is None:
+            idx = self._reqids = {}
+            for e in self.entries:
+                rq = getattr(e, "client_reqid", None)
+                if rq is not None:
+                    ent = idx.get(rq)
+                    if ent is None:
+                        idx[rq] = [1, e.version]
+                    else:
+                        ent[0] += 1
+                        ent[1] = e.version
+        ent = idx.get(reqid)
+        return ent is not None and ent[0] > 0
+
+    def reqid_version(self, reqid) -> Optional[Eversion]:
+        """Newest logged version carrying this client reqid, or None —
+        O(1) off the reqid index (dup-resolution polls this in a loop).
+        Callers gate dup-acks on it: an entry ABOVE the commit watermark
+        may still rewind during peering, so replying success from it
+        would ack a write that can subsequently vanish."""
+        if not self.has_reqid(reqid):
+            return None
+        return self._reqids[reqid][1]
+
+    def since(self, v: Eversion) -> Optional[List[LogEntry]]:
+        """Entries strictly newer than v, or None when v is before the
+        tail (out of the log window -> caller must backfill)."""
+        if v < self.tail:
+            return None
+        return [e for e in self.entries if e.version > v]
+
+    def objects_to_sync(self, v: Eversion) -> Optional[Dict[str, LogEntry]]:
+        """Collapse the delta since v to one final LogEntry per object
+        (the last write wins; a trailing delete means remove)."""
+        delta = self.since(v)
+        if delta is None:
+            return None
+        out: Dict[str, LogEntry] = {}
+        for e in delta:
+            out[e.oid] = e
+        return out
+
+
+@dataclass
+class PGInfo:
+    """pg_info_t analog: what peers exchange during peering."""
+
+    last_update: Eversion = ZERO
+    log_tail: Eversion = ZERO
+    last_complete: Eversion = ZERO
+
+
+def choose_authoritative(infos: Dict[int, PGInfo],
+                         require_rollback: bool = False) -> int:
+    """Authoritative-log election (reference find_best_info).
+
+    Replicated pools: max last_update wins (a write present anywhere may
+    have been acked; full-object pushes make roll-FORWARD cheap).
+
+    EC pools (``require_rollback``, the reference's pg_pool_t flag): the
+    MIN last_update among members at-or-above the global commit
+    watermark wins, so an un-acked partial-stripe write — applied on
+    some shards only, unreconstructable if fewer than k have it — is
+    ROLLED BACK rather than blessed.  Members below the watermark are
+    stale rejoiners, excluded so acked writes can never be rolled back
+    (the reference excludes them via last_epoch_started)."""
+    if not require_rollback:
+        return min(infos,
+                   key=lambda o: (tuple(-x for x in infos[o].last_update), o))
+    committed = max(i.last_complete for i in infos.values())
+    candidates = {o: i for o, i in infos.items()
+                  if i.last_update >= committed}
+    if not candidates:
+        # infos raced in-flight commits (a member's watermark moved
+        # after another snapshotted): no member's log covers the
+        # claimed watermark IN THIS SNAPSHOT.  Fall back to the whole
+        # set rather than crash the peering round — the per-member
+        # rewind guards refuse unsafe targets and the caller's
+        # stale-round check + retry re-elect from fresh infos.
+        candidates = dict(infos)
+    return min(candidates,
+               key=lambda o: (candidates[o].last_update, o))

@@ -1,0 +1,287 @@
+"""Scrub: background integrity verification + repair routing
+(reference PG scrub / ecbackend.rst:86-99).
+
+Counterpart of ``ceph_tpu/cluster/scrub.py``."""
+
+from __future__ import annotations
+
+import asyncio
+from typing import Dict, List, Tuple
+
+from ceph_tpu_torch.cluster import messages as M
+from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+from ceph_tpu_torch.osdmap.osdmap import PGid
+from ceph_tpu_torch.cluster.pg import PGMETA, PGState, _coll
+from ceph_tpu_torch.ec import planar_store
+from ceph_tpu_torch.ops import crc32c as crcmod
+
+
+class ScrubMixin:
+
+    # --------------------------------------------------------------- scrub
+    #
+    # Background integrity verification (reference PG scrub +
+    # ecbackend.rst:86-99): the primary collects per-member scrub maps
+    # (oid -> computed crc32c over the bytes, batched on the device where
+    # object sizes group), detects divergent replicas / corrupt EC shards
+    # WITHOUT a client read, and repairs through the recovery machinery.
+
+    def _build_scrub_map(self, pgid: PGid) -> Dict[str, Tuple]:
+        """oid -> (version, size, computed_crc, stored_crc).  Equal-size
+        objects CRC in ONE batched ``crc32c_rows`` call on this OSD's
+        device; odd sizes take the host path.
+
+        Planar at rest: planar shard objects deep-scrub over
+        their PLANE-MAJOR rows — equal-size planar blobs stack into one
+        crc32c_planar_rows pass whose column-spread crcs are
+        bit-identical to the byte anchor's, so mixed-layout members
+        agree on every verdict and the byte view is never
+        materialized."""
+        import numpy as np
+        import torch
+
+        coll = _coll(pgid)
+        oids = self._list_pg_objects(pgid)
+        pset = {oid for oid in oids
+                if self.store.object_layout(coll, oid)
+                == planar_store.LAYOUT_PLANAR}
+        blobs = {oid: (self.store.read_planar(coll, oid)
+                       if oid in pset else self.store.read(coll, oid))
+                 for oid in oids}
+        by_len: Dict[Tuple[int, bool], List[str]] = {}
+        for oid, b in blobs.items():
+            by_len.setdefault((len(b), oid in pset), []).append(oid)
+        crcs: Dict[str, int] = {}
+        for (ln, planar), group in by_len.items():
+            if planar and ln > 0:
+                planes = np.vstack([planar_store.blob_to_planes(blobs[o])
+                                    for o in group])
+                for o, v in zip(group, crcmod.crc32c_planar_rows(
+                        torch.from_numpy(planes).to(self.device))):
+                    crcs[o] = int(v)
+            elif not planar and len(group) >= 2 and ln > 0:
+                arr = np.stack([
+                    np.frombuffer(blobs[o], dtype=np.uint8) for o in group])
+                vals = crcmod.crc32c_rows(
+                    torch.from_numpy(arr).to(self.device))
+                for o, v in zip(group, vals):
+                    crcs[o] = int(v)
+            else:
+                for o in group:
+                    crcs[o] = crcmod.crc32c(0xFFFFFFFF, blobs[o])
+        out = {}
+        for oid in oids:
+            stored = self.store.getattr(coll, oid, "hinfo_crc")
+            out[oid] = (self.store.get_version(coll, oid),
+                        len(blobs[oid]), crcs[oid],
+                        int(stored) if stored is not None else None)
+        return out
+
+    async def scrub_pg(self, st: PGState) -> Dict[str, List[str]]:
+        """Primary-driven scrub of one PG; returns
+        {"inconsistent": [...], "repaired": [...]}."""
+        async with st.lock:
+            report = await self._scrub_pg_locked(st)
+        # inconsistent -> clean health flow: a scrub pass
+        # scans EVERY object of the PG, so its verdict REPLACES the
+        # set — unrepaired findings stay flagged (beacon-fed
+        # PG_INCONSISTENT / OSD_SCRUB_ERRORS raise), repaired ones and
+        # stale entries (healed by recovery/read-repair out-of-band,
+        # or deleted since) clear, so a single transient repair
+        # failure can never pin the health warning forever.  (If a
+        # read detection races this pass and its repair then fails,
+        # the next detecting read or scrub pass re-flags the oid.)
+        repaired = set(report["repaired"])
+        bad = set(report["inconsistent"]) - repaired
+        st.inconsistent.intersection_update(bad)
+        st.inconsistent.update(bad)
+        if repaired:
+            self.perf.inc("osd_scrub_errors_repaired", len(repaired))
+        if report["inconsistent"]:
+            # cluster-log the scrub result (reference clog error stream)
+            self.clog(
+                "ERR",
+                f"pg {st.pgid} scrub: "
+                f"{len(report['inconsistent'])} inconsistent "
+                f"({len(report['repaired'])} repaired): "
+                f"{report['inconsistent'][:5]}")
+        return report
+
+    async def _scrub_pg_locked(self, st: PGState) -> Dict[str, List[str]]:
+        pool = self.osdmap.pools[st.pgid.pool]
+        members = [o for o in st.acting
+                   if o not in (self.osd_id, CRUSH_ITEM_NONE)]
+        maps: Dict[int, Dict[str, Tuple]] = {
+            self.osd_id: self._build_scrub_map(st.pgid)}
+        for osd in members:
+            reqid = self._next_reqid()
+            fut = self._make_waiter(reqid, 1)
+            try:
+                await self._send_osd(osd, M.MOSDScrub(
+                    reqid=reqid, pgid=st.pgid))
+                acc = await asyncio.wait_for(fut, timeout=5.0)
+                _, reply = acc[0]
+                if reply is not None:
+                    maps[osd] = reply.objects
+            except (asyncio.TimeoutError, ConnectionError):
+                pass
+            finally:
+                self._pending.pop(reqid, None)
+        inconsistent: List[str] = []
+        repaired: List[str] = []
+        if pool.is_erasure():
+            # every shard is distinct: a member is corrupt when the crc of
+            # its bytes no longer matches its stored hinfo crc
+            for osd, smap in maps.items():
+                for oid, (_ver, _size, crc, stored) in smap.items():
+                    if stored is not None and crc != stored:
+                        inconsistent.append(oid)
+                        self.perf.inc("osd_scrub_errors")
+                        bad_shard = {i for i, o in enumerate(st.acting)
+                                     if o == osd}
+                        ok = await self._recover_ec_object(
+                            pool, st, oid, targets=[osd],
+                            exclude_sources=bad_shard)
+                        if ok:
+                            repaired.append(oid)
+            # generation divergence: a shard can be bitwise-clean against
+            # its OWN crc yet belong to an older committed generation
+            # (an interrupted recovery left it behind).  Such a shard
+            # must never feed a decode; rebuild it from the newest
+            # committed group (surfaced by graft-chaos: a stale primary
+            # shard served torn reads and crc-scrub saw nothing wrong)
+            from ceph_tpu_torch.cluster import snaps as snapmod
+
+            handled = set(inconsistent)
+            all_oids = set()
+            for smap in maps.values():
+                all_oids.update(smap)
+            committed = st.last_complete[1]
+            for oid in sorted(all_oids):
+                if oid in handled or oid.endswith(snapmod._SNAPDIR):
+                    continue  # snapdirs replicate; handled oids repaired
+                vers = {osd: smap[oid][0] for osd, smap in maps.items()
+                        if oid in smap}
+                cvers = [v for v in vers.values() if v <= committed]
+                if not cvers:
+                    continue  # only un-acked generations: peering's call
+                auth_v = max(cvers)
+                stale = sorted(o for o, v in vers.items() if v < auth_v)
+                if not stale:
+                    continue
+                inconsistent.append(oid)
+                self.perf.inc("osd_scrub_errors")
+                stale_shards = {i for i, o in enumerate(st.acting)
+                                if o in stale}
+                ok = await self._recover_ec_object(
+                    pool, st, oid, targets=stale,
+                    exclude_sources=stale_shards)
+                if ok:
+                    repaired.append(oid)
+        else:
+            # replicated: majority crc wins, divergent members get the
+            # authoritative copy re-pushed
+            all_oids = set()
+            for smap in maps.values():
+                all_oids.update(smap)
+            for oid in sorted(all_oids):
+                votes: Dict[Tuple[int, int], List[int]] = {}
+                for osd, smap in maps.items():
+                    if oid in smap:
+                        ver, size, crc, _ = smap[oid]
+                        votes.setdefault((size, crc), []).append(osd)
+                if len(votes) <= 1 and all(oid in m for m in maps.values()):
+                    continue
+                inconsistent.append(oid)
+                self.perf.inc("osd_scrub_errors")
+                # only auto-repair with a strict-majority authoritative
+                # copy; on a tie (e.g. 1-1 on size-2 pools) repairing
+                # would arbitrarily overwrite a possibly-good replica —
+                # the reference marks the object inconsistent instead
+                sizes = sorted((len(v) for v in votes.values()),
+                               reverse=True)
+                if len(sizes) > 1 and sizes[0] == sizes[1]:
+                    self.perf.inc("osd_scrub_ties")
+                    continue
+                winner = max(votes.values(), key=len)
+                if self.osd_id not in winner:
+                    if not await self._pull_rep_object(st, winner[0], oid):
+                        continue
+                data = self.store.read(_coll(st.pgid), oid)
+                ver = self.store.get_version(_coll(st.pgid), oid)
+                fixed = True
+                for osd in members:
+                    if osd in winner:
+                        continue
+                    try:
+                        await self._send_osd(osd, M.MOSDPGPush(
+                            pgid=st.pgid, oid=oid, op="repair",
+                            data=data, version=ver))
+                        self.perf.inc("osd_pushes_sent")
+                    except ConnectionError:
+                        fixed = False
+                if fixed:
+                    repaired.append(oid)
+        self.perf.inc("osd_scrubs")
+        return {"inconsistent": inconsistent, "repaired": repaired}
+
+    async def _scrub_loop(self) -> None:
+        """Scheduled deep scrub:
+        each primary PG carries its own next-due deadline, seeded-
+        jittered inside ``osd_scrub_jitter * interval`` so a daemon's
+        PGs (and a cluster's daemons, via per-daemon streams) never
+        scrub in lockstep — the reference spreads deep scrubs across
+        the interval for the same reason.  Due PGs scrub one at a time,
+        yielding to client admission pressure (the QoS seam);
+        the interval is re-read every pass so injectargs can enable or
+        retune a running daemon.  Interval 0 parks the loop."""
+        from ceph_tpu_torch.chaos.rng import stream as _stream
+
+        rng = _stream(self.config.chaos_seed,
+                      f"scrub:osd.{self.osd_id}") \
+            if self.config.chaos_seed else None
+        if rng is None:
+            import random as _random
+
+            rng = _random.Random(self.osd_id * 2654435761 + 1)
+        next_due: Dict = {}
+        while not self._stopped:
+            interval = self.config.osd_scrub_interval
+            if not interval:
+                next_due.clear()
+                await asyncio.sleep(0.5)
+                continue
+            await asyncio.sleep(min(max(interval / 4.0, 0.05), 1.0))
+            now = self.clock.monotonic()
+            jitter = self.config.osd_scrub_jitter
+            for pgid, st in list(self.pgs.items()):
+                if self._stopped:
+                    return
+                if st.primary != self.osd_id:
+                    next_due.pop(pgid, None)
+                    continue
+                due = next_due.get(pgid)
+                if due is None:
+                    # first sight: spread the initial scrub across the
+                    # jitter band instead of stampeding at one beat
+                    next_due[pgid] = now + interval * (
+                        1.0 + jitter * (rng.random() - 1.0))
+                    continue
+                if now < due:
+                    continue
+                # re-arm BEFORE scrubbing (a slow scrub must not
+                # compress the next period), wobbling +/- jitter/2
+                next_due[pgid] = now + interval * (
+                    1.0 + jitter * (rng.random() - 0.5))
+                try:
+                    # background scrub yields to client admission
+                    # pressure, like recovery (QoS class demotion)
+                    await self._yield_under_pressure()
+                    self.perf.inc("osd_scrubs_scheduled")
+                    await self.scrub_pg(st)
+                except asyncio.CancelledError:
+                    raise
+                except Exception:
+                    self.perf.inc("osd_scrub_errors")
+            for pgid in [p for p in next_due if p not in self.pgs]:
+                del next_due[pgid]

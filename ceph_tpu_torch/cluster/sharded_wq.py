@@ -1,0 +1,254 @@
+"""ShardedOpWQ analog: PG-affine client-op dispatch shards.
+
+Counterpart of ``ceph_tpu/cluster/sharded_wq.py``.
+
+Structural mirror of the reference's ShardedOpWQ (src/osd/OSD.cc: ops
+land in one of N shards by PG hash; each shard's own lock + queue serve
+dequeues).  A PG always maps to one shard, so per-PG ordering survives
+sharding by construction; within a shard, ops dequeue on a bounded
+DISPATCH TICK and execute concurrently (per-(connection, PG) arrival
+order preserved through per-group FIFOs — exactly the legacy
+guarantee), which is what lines concurrent EC writes up at the encode
+coalescer (cluster/batcher.py): tick alignment turns N per-op device
+dispatches into one.
+
+The scheduling machinery moves INSIDE the shard: with
+osd_op_queue=mclock every shard owns its own DmClockQueue (the
+reference plugs mClockClientQueue into each ShardedOpWQ shard the same
+way), and deadline purging, stale-attempt drops, and QoS-enforced
+eviction run per shard.  FIFO mode keeps per-(conn, PG) group FIFOs;
+mclock mode spawns a task per dequeued op (QoS decides order, the
+legacy global-mclock semantics).
+
+``osd_op_shards=0`` (the config default) bypasses this module entirely
+— the per-(conn, PG) FIFO / global-mclock path is preserved
+verbatim as the bisection anchor.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from collections import deque
+from typing import Deque, Dict, Optional, Set, Tuple
+
+
+class _Shard:
+    __slots__ = ("idx", "fifo", "opq", "event", "groups", "active")
+
+    def __init__(self, idx: int, opq=None):
+        self.idx = idx
+        self.fifo: Deque = deque()
+        self.opq = opq                      # DmClockQueue under mclock
+        self.event = asyncio.Event()
+        self.groups: Dict[Tuple, Deque] = {}
+        self.active: Set[Tuple] = set()
+
+    def __len__(self) -> int:
+        n = len(self.opq) if self.opq is not None else len(self.fifo)
+        return n + sum(len(q) for q in self.groups.values())
+
+
+class ShardedOpWQ:
+    def __init__(self, osd, nshards: int):
+        from ceph_tpu_torch.cluster.dmclock import DmClockQueue
+
+        self.osd = osd
+        self.use_mclock = osd.config.osd_op_queue == "mclock"
+        self.shards = [
+            _Shard(i, DmClockQueue() if self.use_mclock else None)
+            for i in range(max(1, nshards))]
+
+    def start(self) -> None:
+        for sh in self.shards:
+            self.osd._track(asyncio.get_event_loop().create_task(
+                self.osd.loopmon.wrap(self._drain(sh))))
+
+    # --------------------------------------------------------- enqueue
+
+    def shard_for(self, pgid) -> _Shard:
+        # PG-affine: a PG's ops always land in the same shard, so the
+        # shard queue is the per-object ordering domain (golden-ratio
+        # mix keeps sequential seeds from clumping on one shard)
+        h = (pgid.pool * 0x9E3779B1 + pgid.seed * 0x85EBCA77) & 0xFFFFFFFF
+        return self.shards[h % len(self.shards)]
+
+    def enqueue(self, conn, msg, qos_client: Optional[str] = None,
+                qos_default=None) -> None:
+        sh = self.shard_for(msg.pgid)
+        if msg.trace is not None:
+            # shard-queue stamp: attribution books recv->here as
+            # dispatch_queue and here->tick as batch_wait
+            msg.trace.setdefault("events", []).append(
+                (f"shard:{sh.idx}:queued", time.time()))
+        item = (conn, msg, time.monotonic())
+        if sh.opq is not None:
+            sh.opq.ensure_client(qos_client, qos_default)
+            sh.opq.enqueue(qos_client, item)
+            self.osd.perf.inc("osd_ops_queued_mclock")
+        else:
+            sh.fifo.append(item)
+        self.osd._queued_depth += 1
+        self.osd.perf.set("osd_dispatch_queue_depth",
+                          self.osd._queued_depth)
+        sh.event.set()
+
+    # ------------------------------------------- QoS eviction (mclock)
+
+    def peek_evict(self, match):
+        for sh in self.shards:
+            if sh.opq is not None:
+                v = sh.opq.peek_evict(match)
+                if v is not None:
+                    return v
+        return None
+
+    def evict(self, match):
+        for sh in self.shards:
+            if sh.opq is not None:
+                v = sh.opq.evict(match)
+                if v is not None:
+                    return v
+        return None
+
+    def evicted_total(self) -> int:
+        return sum(sh.opq.stats["evicted"] for sh in self.shards
+                   if sh.opq is not None)
+
+    def set_client(self, client: str, spec) -> None:
+        for sh in self.shards:
+            if sh.opq is not None:
+                sh.opq.set_client(client, spec)
+
+    def dump(self) -> Dict:
+        out: Dict = {"shards": len(self.shards), "per_shard": []}
+        for sh in self.shards:
+            row = {"depth": len(sh)}
+            if sh.opq is not None:
+                row.update(sh.opq.dump())
+            out["per_shard"].append(row)
+        return out
+
+    # ----------------------------------------------------------- drain
+
+    def _dec_depth(self) -> None:
+        self.osd._queued_depth = max(0, self.osd._queued_depth - 1)
+        self.osd.perf.set("osd_dispatch_queue_depth",
+                          self.osd._queued_depth)
+
+    def _pop(self, sh: _Shard):
+        if sh.opq is not None:
+            return sh.opq.dequeue()
+        return sh.fifo.popleft() if sh.fifo else None
+
+    async def _idle(self, sh: _Shard) -> None:
+        """Nothing eligible: purge dead queued work (mclock), then park
+        until the next enqueue or the earliest L-tag."""
+        osd = self.osd
+        if sh.opq is not None:
+            now = osd.clock.time()
+            expired = sh.opq.purge(
+                lambda it: getattr(it[1], "deadline", None) is not None
+                and now > it[1].deadline
+                and not osd._is_control_op(it[1]))
+            for _e_conn, e_msg, _stamp in expired:
+                self._dec_depth()
+                osd._shed_if_expired(e_msg)
+                await osd._admit_release(e_msg)
+            wait = sh.opq.next_eligible_in()
+            if wait is not None:
+                # throttled: sleep until the earliest L-tag matures
+                await asyncio.sleep(min(max(wait, 0.002), 0.25))
+                return
+        sh.event.clear()
+        try:
+            await asyncio.wait_for(sh.event.wait(), 5.0)
+        except asyncio.TimeoutError:
+            pass
+
+    async def _drain(self, sh: _Shard) -> None:
+        """One shard's dispatch loop: each iteration is a TICK — pop up
+        to the bounded batch, hand every op to execution, yield.  Ops of
+        one tick reach the encode coalescer together."""
+        osd = self.osd
+        while not osd._stopped:
+            item = self._pop(sh)
+            if item is None:
+                await self._idle(sh)
+                continue
+            tick = [item]
+            cap = max(1, osd.config.osd_batch_tick_ops or 64)
+            while len(tick) < cap:
+                nxt = self._pop(sh)
+                if nxt is None:
+                    break
+                tick.append(nxt)
+            tick_wall = time.time()
+            for conn, msg, stamp in tick:
+                if msg.trace is not None:
+                    msg.trace.setdefault("events", []).append(
+                        (f"shard:{sh.idx}:tick", tick_wall))
+                if sh.opq is not None:
+                    # legacy-mclock semantics per op: stale-attempt
+                    # drop, conformance gauges, a free-running task
+                    # (QoS already decided the order)
+                    self._dec_depth()
+                    if time.monotonic() - stamp > \
+                            osd.config.osd_client_op_timeout:
+                        osd.perf.inc("osd_ops_dropped_stale")
+                        await osd._admit_release(msg)
+                        continue
+                    t = asyncio.get_event_loop().create_task(
+                        osd.loopmon.wrap(osd._serve_admitted(conn, msg)))
+                    osd._opq_running.add(t)
+                    t.add_done_callback(osd._opq_running.discard)
+                else:
+                    self._queue_group(sh, conn, msg)
+            if sh.opq is not None:
+                osd.perf.set(
+                    "osd_qos_served_reservation",
+                    sum(s.opq.stats["served_reservation"]
+                        for s in self.shards))
+                osd.perf.set(
+                    "osd_qos_served_spare",
+                    sum(s.opq.stats["served_spare"]
+                        for s in self.shards))
+                osd.perf.set("osd_qos_evicted", self.evicted_total())
+            # tick boundary: let the dispatched ops run (and the next
+            # arrivals land) before draining more
+            await asyncio.sleep(0)
+
+    def _queue_group(self, sh: _Shard, conn, msg) -> None:
+        """FIFO mode: per-(connection, PG, object) arrival order — a
+        pipelined A-then-B to one object must apply as A then B, while
+        DIFFERENT objects of one PG dispatch concurrently (they meet
+        again at the encode tick and the ordered commit section)."""
+        key = (id(conn), msg.pgid, msg.oid)
+        q = sh.groups.get(key)
+        if q is None:
+            q = sh.groups[key] = deque()
+        q.append((conn, msg))
+        if key not in sh.active:
+            self._spawn_group(sh, key, q)
+
+    def _spawn_group(self, sh: _Shard, key, q) -> None:
+        sh.active.add(key)
+        t = asyncio.get_event_loop().create_task(
+            self.osd.loopmon.wrap(self._drain_group(sh, key, q)))
+        self.osd._opq_running.add(t)
+        t.add_done_callback(self.osd._opq_running.discard)
+
+    async def _drain_group(self, sh: _Shard, key, q) -> None:
+        try:
+            while q:
+                conn, msg = q.popleft()
+                self._dec_depth()
+                await self.osd._serve_admitted(conn, msg)
+        finally:
+            sh.active.discard(key)
+            if q and not self.osd._stopped:
+                # drainer died mid-queue (cancellation): respawn so the
+                # queued ops are not stranded
+                self._spawn_group(sh, key, q)
+            elif sh.groups.get(key) is q:
+                del sh.groups[key]

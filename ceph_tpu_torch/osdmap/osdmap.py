@@ -14,6 +14,10 @@ Two execution paths share the same semantics:
   torch ops on the OSDMap's device (CUDA unless the caller names the
   CPU), with the sparse host-side post-passes vectorized in numpy.  The
   public results are numpy arrays, as the reference's are.
+
+A map given a ``placements`` cache (``set_device``) looks a pool's raw
+placement up there by every input of it before computing it, so copies
+of one map that share the cache place each pool once.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+import hashlib
 import logging
+import pickle
 
 import numpy as np
 
@@ -199,6 +205,9 @@ class OSDMap:
         # the CPU (resolved when the mapper is built, so a map can be
         # made and read through the scalar chain on any host)
         self.device = device
+        # raw placements shared with other copies of this map (get/put
+        # by ``_raw_key``), or None; never pickled
+        self.placements = None
         # whole pools mapped by the scalar oracle because the map's shape
         # rules the batched mapper out (legacy tunables, non-straw2
         # buckets, sparse bucket ids)
@@ -230,11 +239,15 @@ class OSDMap:
         self._tensor = None
         self.osd_addrs: Dict[int, object] = {}
 
-    def set_device(self, device) -> "OSDMap":
+    def set_device(self, device, placements=None) -> "OSDMap":
         """Put this map's batched placement on ``device``: a map that
         arrived pickled carries its sender's device, and a mapper built
-        on another device is dropped (rebuilt here when next used)."""
+        on another device is dropped (rebuilt here when next used).
+        ``placements``: a cache of raw placements this map shares with
+        other copies of it (an object with ``get(key)`` and
+        ``put(key, value)``), or None."""
         self.device = device
+        self.placements = placements
         if getattr(self._tensor, "device", device) != device:
             self._tensor = None
         return self
@@ -249,6 +262,7 @@ class OSDMap:
         d = dict(self.__dict__)
         d["_scalar"] = None
         d["_tensor"] = None
+        d["placements"] = None
         return d
 
     def __setstate__(self, d):
@@ -256,6 +270,7 @@ class OSDMap:
         self.__dict__.setdefault("flags", set())
         self.__dict__.setdefault("device", None)
         self.__dict__.setdefault("scalar_fallbacks", 0)
+        self.__dict__.setdefault("placements", None)
         self._scalar = ScalarMapper(self.crush)
         self._tensor = None
 
@@ -563,11 +578,44 @@ class OSDMap:
 
     # -- whole-pool batched placement --------------------------------------
 
+    def _raw_key(self, pool_id: int) -> bytes:
+        """Every input of ``_pool_raw(pool_id)``: the CRUSH map with the
+        pool's own rule in place of the rule list (another pool's rule
+        places nothing of this pool), the OSD count, weights and
+        existence, the pool and its upmap entries."""
+        pool = self.pools[pool_id]
+        crush = dict(vars(self.crush))
+        rules = crush.pop("rules")
+        rule = rules[pool.crush_rule] if 0 <= pool.crush_rule < len(rules) \
+            else None
+        upmaps = sorted((pg.seed, tuple(v)) for pg, v in self.pg_upmap.items()
+                        if pg.pool == pool_id)
+        items = sorted((pg.seed, tuple(tuple(p) for p in v))
+                       for pg, v in self.pg_upmap_items.items()
+                       if pg.pool == pool_id)
+        blob = pickle.dumps((sorted(crush.items()), rule, self.max_osd,
+                             list(self.osd_weight), list(self.osd_exists),
+                             pool, upmaps, items),
+                            protocol=pickle.HIGHEST_PROTOCOL)
+        return hashlib.blake2b(blob, digest_size=20).digest()
+
     def _pool_raw(self, pool_id: int):
         """``pool_raw_up`` and its bookkeeping: (raw_up, lengths, pps).
         ``lengths[s]`` is the length of ``pg_raw_up``'s list for seed s
         (firstn rules may place fewer than ``size``), so a caller can tell
-        padding from the list's own entries."""
+        padding from the list's own entries.  Looked up in, and put into,
+        the map's ``placements`` cache when it has one."""
+        cache = self.placements
+        if cache is None:
+            return self._pool_raw_once(pool_id)
+        key = self._raw_key(pool_id)
+        got = cache.get(key)
+        if got is None:
+            got = self._pool_raw_once(pool_id)
+            cache.put(key, got)
+        return tuple(a.copy() for a in got)
+
+    def _pool_raw_once(self, pool_id: int):
         pool = self.pools[pool_id]
         seeds = np.arange(pool.pg_num, dtype=np.uint32)
         pps = pool.raw_pg_to_pps_batch(seeds)

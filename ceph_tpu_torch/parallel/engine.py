@@ -302,14 +302,17 @@ def mesh_for_codec(codec, n_devices: int = 0,
 def wrap_codec_for_mesh(codec, n_devices: int = 0,
                         devices: Optional[Sequence] = None):
     """Return a mesh-routed adapter for codecs with a GF(2^8) coding
-    matrix, or the codec unchanged when it cannot ride the mesh engine
-    (the wide-w and liberation families keep their single-device path).
-    The rule is the reference's: jerasure's cauchy codecs have a coding
-    matrix and are wrapped too, though the engine does not lay out their
-    packets, so a wrapped cauchy codec gives wrong parity (ROADMAP §C)."""
+    matrix, or the codec unchanged when it cannot ride the mesh engine:
+    the wide-w families, and every packet codec (a ``packetsize``:
+    jerasure's cauchy_* and the liberation family), whose chunks are
+    packet rows where the engine computes a bytewise RS code.  The
+    reference wraps cauchy codecs too, and its adapter then gives wrong
+    parity; the port's rule differs on purpose (ROADMAP §C)."""
     eng = getattr(codec, "engine", None)
     coding = getattr(eng, "coding", None)
     if coding is None or getattr(eng, "w", 8) != 8:
+        return codec
+    if getattr(codec, "packetsize", None) is not None:
         return codec
     return MeshCodecAdapter(codec, mesh_for_codec(codec, n_devices, devices))
 

@@ -7,8 +7,9 @@ and the ``ceph daemon <name> <cmd>`` CLI path reaches any daemon through
 the same table.
 
 Counterpart of ``ceph_tpu/utils/admin_socket.py``.  The port serves the
-same common command set except ``race report`` and ``graftlint report``,
-which read the static-analysis package and arrive with it.
+same common command set except ``graftlint report``, which reads the
+static-analysis package and arrives with it (``race report`` reads the
+race tracker, ``ceph_tpu_torch/analysis/racecheck.py``).
 
 Handlers take the full command dict and return the reply payload; they
 may be sync or async (the reference's equivalent seam is AdminSocketHook
@@ -94,6 +95,11 @@ class AdminSocket:
                 "injectargs",
                 lambda cmd: config.injectargs(cmd.get("args", {})),
                 "runtime config mutation")
+        self.register("race report", lambda cmd: _race_report(),
+                      "graft-race tracker state: probe counts, ticks, "
+                      "and write-after-read convictions with both "
+                      "task stacks (disabled payload when no tracker "
+                      "is installed)")
         self.register("lockdep dump", _lockdep_dump,
                       "dump the observed runtime lock-ordering graph")
         self.register("chaos report",
@@ -108,6 +114,15 @@ def _chaos_report(config):
     from ceph_tpu_torch.chaos.counters import chaos_report
 
     return chaos_report(config)
+
+
+def _race_report():
+    """The process-wide race tracker's report: NULL_RACE serves its
+    disabled payload, so the command never errors when the sanitizer is
+    off (the blackbox-dump contract)."""
+    from ceph_tpu_torch.analysis import racecheck
+
+    return racecheck.TRACKER.report()
 
 
 def _lockdep_dump(cmd):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement, device mesh, OSD store path and control plane on the CUDA cards.
+"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement, device mesh, OSD store path, control plane and OSD cluster on the CUDA cards.
 
 Run from the repository root with no arguments:
 
@@ -149,10 +149,36 @@ non-zero if any of them fails:
    from submit to all three applied and its mint (split by pool), each
    round's plan and commit, the mapper rebuild per deep copy, the longest
    event-loop block, the failover and the revived monitor's catch-up;
-9. one launch: a torch.profiler trace of one cauchy ``encode_planar``
+9. the OSD cluster (``ceph_tpu_torch/cluster/{osd,pg,pglog,backend_ec,
+   backend_replicated,client_ops,recovery,scrub,sharded_wq,objecter,
+   vstart}.py``): ``start_cluster`` of 3 monitors, a mgr and 24 OSDs on
+   12 hosts, each OSD on a BlueStore in a temporary directory, every
+   daemon and the client on ``cuda:0``; an ISA k8m4 pool of 256 PGs
+   (planes at rest, kernel B1), a cauchy_good k8m4 pool of 64 PGs (bytes
+   at rest, kernel B2) and a replicated size-3 pool of 256 PGs; 16, 8
+   and 8 objects of 4 MiB from the seed (half of rados bench's 32, 16
+   and 16), written and read back with 16 ops in flight (rados bench's
+   default); both EC pools deep-scrubbed (each OSD its primary PGs, side
+   by side); one OSD stopped until it is down and out and every PG is
+   clean as the cluster reports it (then up to 30 s for the last pushes
+   to land on every acting member), every object read again; the OSD
+   revived on an empty BlueStore, marked in and backfilled.  Checked:
+   every read equals what was written, the scrub finds nothing, every
+   acting member of every object's PG holds it after the recovery and
+   the backfill, every EC shard every store holds equals the plain CPU
+   codec's (``factory(profile, device="cpu")``) in the layout the store
+   holds it, and each EC pool's stores hold at least a shard for every
+   slot CRUSH fills, after the writes, the recovery and the backfill.
+   Printed beside the card: each pool's write and read MB/s and p50/p99
+   op latency, ops per encode tick, scrub time, the times to down, out
+   and clean, the backfill, the map advances summed over the OSDs per
+   epoch (the daemons share one placement cache) and one OSD's unshared
+   placement of one epoch, the client's scalar targeting and the
+   longest event-loop block;
+10. one launch: a torch.profiler trace of one cauchy ``encode_planar``
    call shows exactly one device kernel, B2's staged kernel, and no
    ``pack_blocks_kernel``;
-10. timing: CUDA-event medians of B1 and B2 and of their plain versions at
+11. timing: CUDA-event medians of B1 and B2 and of their plain versions at
    their headline shapes (L2 flushed before each launch), each kernel's
    share of its bound, a same-traffic yardstick (``torch.bitwise_xor`` of
    the two 8 MiB halves of a (64, 262144) uint8 tensor into 8 MiB), the
@@ -170,10 +196,10 @@ non-zero if any of them fails:
    ``do_rule_batch`` on the 1,000,000 PGs.
 
 Phases 2, 3, each path of phase 4, phase 5 (a)-(c), (d), (e), phase 6,
-each pool of phase 7 and phase 8 are main paths: kernel launch counts
-are set to 0 just before each and read just after, every kernel of the
-path must have launched, and every launch must have taken the staged
-path, except on the w=32 path, whose encode and 4-erasure decode take the
+each pool of phase 7, phase 8 and each window of phase 9 are main paths:
+kernel launch counts are set to 0 just before each and read just after,
+every kernel of the path must have launched, and every launch must have
+taken the staged path, except on the w=32 path, whose encode and 4-erasure decode take the
 kept one; the placement path launches neither kernel and its
 ``crush_map_*`` counters must show its five batched calls, the C1 path's
 its two, the scorer path's ``balance_candidates_scored`` the
@@ -182,7 +208,10 @@ and maps one shard per mesh slot; the store path's pool A launches B1
 and not B2, its pool B launches B2, every launch staged; the control
 plane launches neither, and its ``crush_map_calls`` are each mint's 2
 per pool of both maps (0, 2, 4, 4, 4) and each balancer plan's 2 per
-pool for its skews and 1 per pool per optimizer measurement.  Before the
+pool for its skews and 1 per pool per optimizer measurement.  Phase 9's
+windows are each pool's I/O, the scrub, the recovery and the backfill:
+the ISA pool's launches B1 and not B2, the cauchy pool's B2 and not B1,
+the replicated pool's neither, every launch staged.  Before the
 last lines, one ``phase clock`` line a phase gives its seconds.  The last
 lines are the card's name and power limit, one JSON object describing each
 kernel (B1's and B2's launches summed over every main path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -3044,6 +3073,535 @@ def phase_control_plane(card: str, reset_counts, gf8_mods, dev=None):
     return out
 
 
+# -- the OSD cluster ---------------------------------------------------------
+
+OC_OSDS = 24
+OC_PER_HOST = 2                 # 12 hosts, the EC pools' failure domain
+OC_MONS = 3
+OC_OBJECT = 4 << 20             # rados bench's default object size
+OC_INFLIGHT = 16                # rados bench's default ops in flight
+# name, pool type, pg_num, profile, objects, the kernel its ticks run;
+# half of rados bench's 32 / 16 / 16 objects of a run at full size, so
+# the script stays under half its time limit
+OC_POOLS = (
+    ("isa", "erasure", 256, {"plugin": "isa", "k": "8", "m": "4"}, 16, "B1"),
+    ("cauchy", "erasure", 64, CAUCHY_PROFILE, 8, "B2"),
+    ("rep", "replicated", 256, None, 8, None),
+)
+OC_VICTIM = 5
+OC_STORE_BYTES = 512 << 20      # each OSD's BlueStore device
+OC_BOUND_S = 300.0              # the whole path
+OC_WAIT_S = 120.0               # each wait for a map state or clean PGs
+
+
+def oc_config():
+    """vstart's test timings, with failure, lease and Paxos timeouts of
+    Ceph's own order (a 1 s heartbeat, 20 s grace, 10 s lease and round
+    timeouts; 24 OSDs pinging 23 peers every 0.1 s would fill one event
+    loop with 5,520 round trips a second): the first map advance after a pool create maps the new
+    pool on the event loop, and a 12-of-12-host erasure pool takes the
+    batched mapper seconds on the card (its retries are launch-bound),
+    a freeze the test timings would read as dead daemons.  Client-op
+    deadlines that 16 ops of 4 MiB in flight on one host's loop cannot
+    miss, and every pool's map advance through the whole-pool placement,
+    which the daemons of the cluster share: the per-PG scalar chain (the
+    option's default for pools under 256 PGs) would walk every PG of the
+    64-PG pool on every OSD at every epoch."""
+    from ceph_tpu_torch.cluster.vstart import _fast_config
+    from ceph_tpu_torch.utils import Config
+
+    return Config(**{**_fast_config().show(),
+                     "osd_heartbeat_interval": 1.0,
+                     "osd_heartbeat_grace": 20.0,
+                     "mon_osd_beacon_grace": 20.0,
+                     "mon_lease_ack_timeout": 10.0,
+                     "mon_paxos_timeout": 10.0,
+                     "osd_client_op_timeout": 120.0,
+                     "osd_map_batch_min_pgs": 1})
+
+
+OC_SETTLE_S = 30.0              # for pushes still landing after clean
+
+
+def oc_clean(cluster) -> bool:
+    """Every OSD on the mon's epoch, no PG of any OSD unclean or waiting
+    to peer, and no pg_temp left in the map: clean as the cluster itself
+    reports it."""
+    m = cluster.mon.osdmap
+    return not m.pg_temp and all(
+        o.osdmap is not None and o.osdmap.epoch == m.epoch
+        and not o._unclean_pgs and not o._peering_pending
+        for o in cluster.osds.values())
+
+
+def oc_absent(cluster, objects):
+    """(pg, oid, osd) of every acting member of an object's PG that does
+    not hold it.  A slot CRUSH leaves empty stays empty: the mon's
+    erasure rule (``chooseleaf indep 12 type host`` with the default 50
+    tries, no ``set_choose_tries``) fills all 12 slots over 12 hosts for
+    most PGs, not all."""
+    from ceph_tpu_torch.cluster.pg import _coll
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+
+    m = cluster.mon.osdmap
+    objecter = cluster.clients[0].objecter
+    out = []
+    for pool_id, oid in objects:
+        pgid = objecter.object_pgid(pool_id, oid)
+        _, _, acting, _ = m.pg_to_up_acting_osds(pgid)
+        out += [(str(pgid), oid, o) for o in acting
+                if o != CRUSH_ITEM_NONE and (
+                    o not in cluster.osds or cluster.osds[o].store.stat(
+                        _coll(pgid), oid) is None)]
+    return out
+
+
+async def oc_settle(cluster, objects, what: str) -> float:
+    """Clean as the cluster reports it (``OC_WAIT_S`` at most), then up to
+    ``OC_SETTLE_S`` more for the pushes of the last rounds to land: a
+    primary's round ends before its pushes are applied.  Raises if an
+    acting member still lacks an object after that; the seconds to
+    clean."""
+    import asyncio
+
+    t = await oc_wait(lambda: oc_clean(cluster), what,
+                      lambda: oc_state(cluster, objects))
+    t0 = time.perf_counter()
+    while oc_absent(cluster, objects):
+        if time.perf_counter() - t0 > OC_SETTLE_S:
+            raise AssertionError(
+                f"OSD cluster: {what}, but acting members lack objects "
+                f"{OC_SETTLE_S} s later: {oc_state(cluster, objects)}")
+        await asyncio.sleep(0.25)
+    return t
+
+
+def oc_state(cluster, objects=()) -> str:
+    """What keeps the cluster from clean: epochs, pg_temp entries, the
+    unclean and pending PGs by OSD, and the acting members that lack an
+    object."""
+    m = cluster.mon.osdmap
+    unclean = {o.osd_id: sorted(str(p) for p in o._unclean_pgs)[:4]
+               for o in cluster.osds.values() if o._unclean_pgs}
+    pending = {o.osd_id: len(o._peering_pending)
+               for o in cluster.osds.values() if o._peering_pending}
+    epochs = sorted({o.osdmap.epoch for o in cluster.osds.values()
+                     if o.osdmap is not None})
+    absent = oc_absent(cluster, objects) if objects else []
+    return (f"mon epoch {m.epoch}, OSD epochs {epochs}, pg_temp "
+            f"{dict(list(m.pg_temp.items())[:4])} ({len(m.pg_temp)}), "
+            f"unclean {unclean}, pending {pending}, up "
+            f"{sum(m.osd_up)}/{m.max_osd}, absent {absent[:6]} "
+            f"({len(absent)})")
+
+
+async def oc_wait(pred, what: str, describe=None) -> float:
+    """Poll ``pred`` every 50 ms up to ``OC_WAIT_S``; the seconds it took.
+    On a timeout the error carries ``describe()``."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > OC_WAIT_S:
+            raise AssertionError(
+                f"OSD cluster: {what} after {OC_WAIT_S} s"
+                + (f": {describe()}" if describe else ""))
+        await asyncio.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+async def oc_ops(io, objs, write: bool):
+    """Every object written (or read and compared) with ``OC_INFLIGHT``
+    ops in flight; (wall seconds, per-op latencies)."""
+    import asyncio
+
+    sem = asyncio.Semaphore(OC_INFLIGHT)
+    lat = []
+
+    async def one(oid, data):
+        async with sem:
+            t0 = time.perf_counter()
+            if write:
+                await io.write_full(oid, data)
+            else:
+                got = await io.read(oid)
+                if got != data:
+                    raise AssertionError(f"OSD cluster: read of {oid} "
+                                         "differs from what was written")
+            lat.append(time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(one(o, d) for o, d in objs.items()))
+    return time.perf_counter() - t0, lat
+
+
+def oc_expected(profile, stripe_unit: int, objs):
+    """Each object's shards as the port's plain CPU codec gives them
+    (``factory(profile, device="cpu")``), in the stripe layout the mon
+    gives the pool (``stripe_unit`` composed with the codec's, as
+    ``Monitor._create_pool`` does), as bytes and, for a pool that keeps
+    planes at rest, as the plane blob a store holds; (the stripe unit,
+    {oid: [(bytes, planes or None) per shard]})."""
+    from ceph_tpu_torch.ec import factory, planar_store, stripe
+
+    codec = factory(profile, device="cpu")
+    unit = codec.stripe_unit(stripe_unit)
+    sinfo = stripe.StripeInfo(codec.get_data_chunk_count(), unit)
+    planar = stripe.planar_at_rest_ok(codec, unit)
+    out = {}
+    for oid, data in objs.items():
+        rows = stripe.encode_stripes(codec, sinfo, data)
+        out[oid] = [(row.tobytes(), planar_store.planes_to_blob(
+            planar_store.shard_to_planes(row.tobytes())) if planar else None)
+            for row in rows]
+    return unit, out
+
+
+def oc_filled_slots(cluster, pool_id, oids) -> int:
+    """The acting slots CRUSH fills for the pool's objects: objects x
+    (k+m), less the slots it leaves NONE."""
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+
+    m = cluster.mon.osdmap
+    objecter = cluster.clients[0].objecter
+    return sum(
+        sum(o != CRUSH_ITEM_NONE for o in m.pg_to_up_acting_osds(
+            objecter.object_pgid(pool_id, oid))[2]) for oid in oids)
+
+
+def oc_check_shards(cluster, pool_id, expected, label: str) -> int:
+    """Every shard every store holds for the pool's objects equals the
+    plain codec's, in the layout the store holds it in (planes or
+    bytes), and there are at least as many as the slots CRUSH fills.
+    The shards compared."""
+    from ceph_tpu_torch.ec import planar_store
+
+    seen = 0
+    for o, osd in cluster.osds.items():
+        st = osd.store
+        for coll in st.list_collections():
+            if not coll.startswith(f"pg_{pool_id}_"):
+                continue
+            for oid in st.list_objects(coll):
+                if oid not in expected:
+                    continue
+                s = int(st.getattr(coll, oid, "shard"))
+                want, want_planes = expected[oid][s]
+                if st.object_layout(coll, oid) == planar_store.LAYOUT_PLANAR:
+                    got, want = st.read_planar(coll, oid), want_planes
+                else:
+                    got = st.read(coll, oid)
+                if got != want:
+                    raise AssertionError(
+                        f"OSD cluster ({label}): osd.{o} {coll}/{oid} shard "
+                        f"{s} differs from the plain codec's")
+                seen += 1
+    want = oc_filled_slots(cluster, pool_id, expected)
+    if seen < want:
+        raise AssertionError(
+            f"OSD cluster ({label}): pool {pool_id}'s stores hold {seen} "
+            f"shards of its objects, fewer than the {want} slots CRUSH "
+            "fills")
+    return seen
+
+
+def oc_launches(gf8_mods):
+    return tuple((m.launches, m.kept_launches) for m in gf8_mods)
+
+
+async def osd_cluster(dev, card: str, reset_counts, gf8_mods, store_dir):
+    """The path itself: see ``phase_osd_cluster``."""
+    import asyncio
+
+    import torch
+
+    from ceph_tpu_torch.cluster.bluestore import BlueStore
+    from ceph_tpu_torch.cluster.vstart import start_cluster
+
+    rng = np.random.default_rng(SEED + 1000)
+    out = {"windows": {}, "t": {}, "io": {}}
+    data = {name: {f"{name}_{i}": rng.integers(
+        0, 256, OC_OBJECT, dtype=np.uint8).tobytes() for i in range(n_obj)}
+        for name, _t, _pg, _p, n_obj, _k in OC_POOLS}
+    # the plain codec's shards, before any daemon starts: minutes of host
+    # work on the cluster's event loop would read as dead daemons
+    t0 = time.perf_counter()
+    cfg = oc_config()
+    expected = {name: oc_expected(prof, cfg.osd_ec_stripe_unit, data[name])
+                for name, _t, _pg, prof, _n, _k in OC_POOLS if prof}
+    out["t"]["expected"] = time.perf_counter() - t0
+    watch = LoopWatch()
+    # the shard checks read every store on the loop: the phase's work
+    watch.OWN = LoopWatch.OWN + ("check",)
+    watch_task = asyncio.get_running_loop().create_task(watch.run())
+    t0 = time.perf_counter()
+    cluster = await start_cluster(
+        OC_OSDS, osds_per_host=OC_PER_HOST, n_mons=OC_MONS, with_mgr=True,
+        config=cfg,
+        store_factory=lambda o: BlueStore(f"{store_dir}/osd{o}",
+                                          size=OC_STORE_BYTES),
+        device=dev)
+    try:
+        if any(d.device != dev for d in
+               list(cluster.osds.values()) + cluster.mons + [cluster.mgr]):
+            raise AssertionError("OSD cluster: a daemon is off the card")
+        out["t"]["boot"] = time.perf_counter() - t0
+        watch.step = "pools"
+        client = await cluster.client()
+        if client.objecter.device != dev:
+            raise AssertionError("OSD cluster: the client is off the card")
+        pools = {}
+        for name, ptype, pg_num, prof, _n, _k in OC_POOLS:
+            t1 = time.perf_counter()
+            pid = await client.pool_create(
+                name, ptype, pg_num=pg_num, size=3,
+                ec_profile=dict(prof) if prof else None)
+            pools[name] = pid
+            out["t"][f"create {name}"] = time.perf_counter() - t1
+            if prof and int(cluster.mon.osdmap.pools[pid].ec_profile[
+                    "stripe_unit"]) != expected[name][0]:
+                raise AssertionError(f"OSD cluster: pool {name}'s stripe "
+                                     "unit is not the one checked against")
+        out["t"]["pools clean"] = await oc_wait(
+            lambda: oc_clean(cluster), "PGs clean after the creates",
+            lambda: oc_state(cluster))
+
+        def window(label):
+            torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+            out["windows"][label] = oc_launches(gf8_mods)
+
+        for name, *_rest in OC_POOLS:
+            io = client.ioctx(pools[name])
+            watch.step = f"write {name}"
+            reset_counts()
+            w_s, w_lat = await oc_ops(io, data[name], write=True)
+            watch.step = f"read {name}"
+            r_s, r_lat = await oc_ops(io, data[name], write=False)
+            window(name)
+            out["io"][name] = (w_s, w_lat, r_s, r_lat)
+        objects = [(pools[name], oid) for name in pools
+                   for oid in data[name]]
+        ticks = [(o.perf.get("osd_batch_ticks"),
+                  o.perf.get("osd_batch_coalesced_ops"))
+                 for o in cluster.osds.values()]
+        out["ticks"] = (sum(a for a, _ in ticks), sum(b for _, b in ticks))
+        watch.step = "scrub"
+        reset_counts()
+        t1 = time.perf_counter()
+        ec_pools = {pools["isa"], pools["cauchy"]}
+
+        async def scrub_primary_pgs(o):
+            """One OSD deep-scrubs its primary PGs of the EC pools in
+            turn (``osd_max_scrubs`` 1); the OSDs scrub side by side."""
+            reports = []
+            for pgid, st in sorted(o.pgs.items()):
+                if pgid.pool in ec_pools and st.primary == o.osd_id:
+                    reports.append(await o.scrub_pg(st))
+            return reports
+
+        reports = [r for rs in await asyncio.gather(*(
+            scrub_primary_pgs(o) for o in cluster.osds.values())) for r in rs]
+        bad = [oid for r in reports for oid in r["inconsistent"]]
+        scrubbed = len(reports)
+        out["t"]["scrub"] = time.perf_counter() - t1
+        window("scrub")
+        if bad or scrubbed != sum(p[2] for p in OC_POOLS[:2]):
+            raise AssertionError(f"OSD cluster: deep scrub of {scrubbed} PGs "
+                                 f"found {len(bad)} inconsistent objects")
+        out["scrub"] = (scrubbed, len(bad))
+        expected = {name: shards for name, (_u, shards) in expected.items()}
+        watch.step = "check"
+        out["shards"] = {"written": {
+            name: oc_check_shards(cluster, pools[name], expected[name],
+                                  "written") for name in expected}}
+        # one OSD stopped: down, out, and every PG clean again
+        watch.step = "recovery"
+        reset_counts()
+        epoch0 = cluster.mon.osdmap.epoch
+        t1 = time.perf_counter()
+        await cluster.kill_osd(OC_VICTIM)
+        out["t"]["marked down"] = await oc_wait(
+            lambda: not cluster.mon.osdmap.osd_up[OC_VICTIM], "never down")
+        out["t"]["marked out"] = await oc_wait(
+            lambda: cluster.mon.osdmap.osd_weight[OC_VICTIM] == 0,
+            "never out")
+        await oc_settle(cluster, objects, "PGs clean after the out")
+        out["t"]["recovery"] = time.perf_counter() - t1
+        out["recovery_epochs"] = cluster.mon.osdmap.epoch - epoch0
+        watch.step = "reread"
+        r_s, r_lat = 0.0, []
+        for name, *_rest in OC_POOLS:
+            s, lat = await oc_ops(client.ioctx(pools[name]), data[name],
+                                  write=False)
+            r_s += s
+            r_lat += lat
+        out["io"]["reread"] = (r_s, r_lat)
+        window("recovery")
+        watch.step = "check"
+        out["shards"]["recovered"] = {
+            name: oc_check_shards(cluster, pools[name], expected[name],
+                                  "recovered") for name in expected}
+        # the OSD back on a new, empty BlueStore: backfill
+        watch.step = "backfill"
+        reset_counts()
+        t1 = time.perf_counter()
+        cluster.osd_stores[OC_VICTIM] = BlueStore(
+            f"{store_dir}/osd{OC_VICTIM}-new", size=OC_STORE_BYTES)
+        await cluster.revive_osd(OC_VICTIM, with_store=True)
+        await oc_wait(lambda: cluster.mon.osdmap.osd_up[OC_VICTIM],
+                      "never back up")
+        await client.objecter.mon_command({"prefix": "osd in",
+                                           "id": OC_VICTIM})
+        await oc_wait(lambda: cluster.mon.osdmap.osd_weight[OC_VICTIM] > 0,
+                      "never back in")
+        await oc_settle(cluster, objects, "PGs clean after backfill")
+        out["t"]["backfill"] = time.perf_counter() - t1
+        window("backfill")
+        watch.step = "check"
+        out["shards"]["backfilled"] = {
+            name: oc_check_shards(cluster, pools[name], expected[name],
+                                  "backfilled") for name in expected}
+        victim = cluster.osds[OC_VICTIM]
+        out["victim_shards"] = sum(
+            len(victim.store.list_objects(c))
+            for c in victim.store.list_collections() if c.startswith("pg_"))
+        watch.step = "teardown"
+        out["map"] = (sum(o.map_advance_seconds
+                          for o in cluster.osds.values()),
+                      sum(o.map_advances for o in cluster.osds.values()),
+                      cluster.mon.osdmap.epoch)
+        out["targets"] = (client.objecter.target_seconds,
+                          client.objecter.targets)
+        out["loop"] = watch.worst
+        last_map = pickle.dumps(cluster.osds[0].osdmap)
+    finally:
+        await cluster.stop()
+        watch_task.cancel()
+    out["t"]["path"] = time.perf_counter() - t0
+    out["unshared"] = oc_unshared_advance(last_map, dev,
+                                          cfg.osd_map_batch_min_pgs)
+    return out
+
+
+def oc_unshared_advance(map_blob: bytes, dev, batch_min: int):
+    """One OSD's placement of one epoch without the cluster's shared
+    cache: every pool of the last map snapshotted as an OSD's map advance
+    does (``placement_snapshot``), on a copy as a full map arrives (its
+    mapper not built yet), then again on the same copy, as an epoch that
+    arrives as an increment finds it.  (seconds, seconds)."""
+    from ceph_tpu_torch.osdmap.osdmap import placement_snapshot
+
+    m = pickle.loads(map_blob).set_device(dev)
+    out = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for pool_id in sorted(m.pools):
+            placement_snapshot(m, pool_id, batch_min)
+        out.append(time.perf_counter() - t0)
+    return tuple(out)
+
+
+def oc_pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def phase_osd_cluster(card: str, reset_counts, gf8_mods, dev=None):
+    """The OSD cluster (``ceph_tpu_torch/cluster/{osd,pg,pglog,
+    backend_ec,backend_replicated,client_ops,recovery,scrub,sharded_wq,
+    objecter,vstart}.py`` over the stores, messenger, batchers, monitors
+    and mgr of earlier slices): ``start_cluster`` of 3 monitors, a mgr and
+    24 OSDs on 12 hosts, each OSD on a BlueStore in a temporary
+    directory, all on ``cuda:0``; pools ISA k8m4 (256 PGs, planes at rest,
+    kernel B1), cauchy_good k8m4 (64 PGs, bytes at rest, kernel B2) and
+    replicated size 3 (256 PGs); 16, 8 and 8 objects of 4 MiB (half of
+    rados bench's 32, 16 and 16) written and read back with 16 ops in
+    flight, both EC pools deep-scrubbed, one
+    OSD stopped until it is down and out and every PG is clean, every
+    object read again, the OSD revived on an empty BlueStore and
+    backfilled.  Each pool's I/O, the scrub, the recovery and the
+    backfill are counted windows: B1 launches on the ISA pool and not
+    B2, B2 on the cauchy pool and not B1, neither on the replicated
+    pool, every launch staged.  ``dev`` (``cuda:0`` unless named) is for
+    a rehearsal on the CPU.  Returns the B1 and B2 launches summed over
+    the windows."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_osds_") as tmp:
+        out = asyncio.run(asyncio.wait_for(
+            osd_cluster(dev, card, reset_counts, gf8_mods, tmp), OC_BOUND_S))
+    wins = out["windows"]
+    for label, ((b1, b1k), (b2, b2k)) in wins.items():
+        log(f"main path (OSD cluster, {label}): B1 launches {b1} "
+            f"({b1 - b1k} staged, {b1k} kept), B2 launches {b2} "
+            f"({b2 - b2k} staged, {b2k} kept)")
+        if b1k or b2k:
+            raise AssertionError(f"OSD cluster ({label}): a kept launch")
+    if wins["isa"][0][0] <= 0 or wins["isa"][1][0]:
+        raise AssertionError("OSD cluster: the ISA pool's window is not "
+                             "B1 only")
+    if wins["cauchy"][1][0] <= 0 or wins["cauchy"][0][0]:
+        raise AssertionError("OSD cluster: the cauchy pool's window is not "
+                             "B2 only")
+    if wins["rep"][0][0] or wins["rep"][1][0]:
+        raise AssertionError("OSD cluster: the replicated pool launched an "
+                             "EC kernel")
+    ms = lambda s: f"{s * 1e3:.3f} ms"  # noqa: E731
+    t = out["t"]
+    for name, _pt, pg_num, _p, n_obj, kernel in OC_POOLS:
+        w_s, w_lat, r_s, r_lat = out["io"][name]
+        mb = n_obj * OC_OBJECT / 1e6
+        log(f"OSD cluster [{card}]: pool {name} ({pg_num} PGs, "
+            f"{n_obj} x {OC_OBJECT >> 10} KiB, {OC_INFLIGHT} in flight, kernel "
+            f"{kernel or 'none'}): write {mb / w_s:.3f} MB/s, op latency "
+            f"p50 {ms(oc_pct(w_lat, 0.5))} p99 {ms(oc_pct(w_lat, 0.99))}; "
+            f"read {mb / r_s:.3f} MB/s, p50 {ms(oc_pct(r_lat, 0.5))} p99 "
+            f"{ms(oc_pct(r_lat, 0.99))}")
+    r_s, r_lat = out["io"]["reread"]
+    total = sum(p[4] for p in OC_POOLS) * OC_OBJECT / 1e6
+    ticks, tick_ops = out["ticks"]
+    adv_s, advances, epochs = out["map"]
+    tgt_s, tgts = out["targets"]
+    lag, where = out["loop"]
+    log(f"OSD cluster [{card}]: encode ticks {ticks} for {tick_ops} ops "
+        f"({tick_ops / max(ticks, 1):.3f} ops a tick); deep scrub of "
+        f"{out['scrub'][0]} EC PGs {t['scrub']:.3f} s, "
+        f"{out['scrub'][1]} inconsistent")
+    log(f"OSD cluster [{card}]: osd.{OC_VICTIM} stopped: down after "
+        f"{t['marked down']:.3f} s, out after {t['marked out']:.3f} s, every "
+        f"PG clean {t['recovery']:.3f} s after the stop "
+        f"({out['recovery_epochs']} epochs); reread of all {total:.3f} MB "
+        f"{total / r_s:.3f} MB/s, p50 {ms(oc_pct(r_lat, 0.5))} p99 "
+        f"{ms(oc_pct(r_lat, 0.99))}; revived on an empty BlueStore, clean "
+        f"after backfill in {t['backfill']:.3f} s ({out['victim_shards']} "
+        f"objects back on it)")
+    log(f"OSD cluster [{card}]: shards equal to the plain CPU codec's: "
+        f"{json.dumps(out['shards'], sort_keys=True)}; every acting member "
+        "holds every object after the recovery and the backfill")
+    full_s, inc_s = out["unshared"]
+    log(f"OSD cluster [{card}]: map advances {advances} over {OC_OSDS} "
+        f"OSDs and {epochs} epochs, {adv_s:.3f} s in all, "
+        f"{adv_s / max(epochs, 1):.3f} s per epoch summed over the OSDs "
+        f"sharing one placement cache; one OSD unshared, every pool of "
+        f"one epoch: {full_s:.3f} s on a full map, {inc_s:.3f} s on an "
+        f"increment; "
+        f"the client's scalar targeting {tgts} walks, {ms(tgt_s)}; "
+        f"longest loop block {ms(lag)} (in {where}); boot "
+        f"{t['boot']:.3f} s, pool creates "
+        + ", ".join(f"{ms(t[f'create {p[0]}'])}" for p in OC_POOLS)
+        + f", clean {t['pools clean']:.3f} s; the plain codec's shards "
+        f"{t['expected']:.3f} s (before the boot); the path "
+        f"{t['path']:.3f} s, the phase {time.perf_counter() - t0:.3f} s")
+    b1 = sum(w[0][0] for w in wins.values())
+    b2 = sum(w[1][0] for w in wins.values())
+    return b1, b2
+
+
 def card_name() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3291,6 +3849,14 @@ def main() -> int:
     # window inside (no EC kernel may launch there)
     phase_control_plane(card, reset_counts, (gf8_cuda, gf8_bytes_cuda))
     mark("control plane")
+
+    # the OSD cluster: each pool's I/O, the scrub, the recovery and the
+    # backfill its own counted window inside
+    oc_b1, oc_b2 = phase_osd_cluster(card, reset_counts,
+                                     (gf8_cuda, gf8_bytes_cuda))
+    b1_launches += oc_b1
+    b2_launches += oc_b2
+    mark("OSD cluster")
 
     phase_one_launch(cauchy, cdata)
     yard_ms = phase_yardstick(card)

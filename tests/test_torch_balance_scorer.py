@@ -35,6 +35,7 @@ from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
 from ceph_tpu_torch.osdmap import balancer as pbalancer
 from ceph_tpu_torch.osdmap import osdmap as posd
 from ceph_tpu_torch.utils.perf import KERNELS
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 ENGINES = ["numpy", "device"]
 

@@ -49,6 +49,7 @@ import ceph_tpu_torch.utils.perf as perf
 import ceph_tpu_torch.utils.tasks as tasks
 from ceph_tpu_torch.ec import factory
 from ceph_tpu_torch.ec import stripe
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 REF = types.SimpleNamespace(
     batcher=jbatcher, M=jmessages, config=jconfig, perf=jperf,

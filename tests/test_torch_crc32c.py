@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from ceph_tpu.ec import planar_store as jpstore
 from ceph_tpu.ops import crc32c as jcrc
 from ceph_tpu_torch.ops import crc32c as crc
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 LENGTHS = [0, 1, 7, 100, 4096, 5000, 9000]
 

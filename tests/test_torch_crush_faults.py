@@ -43,6 +43,7 @@ from ceph_tpu_torch.crush.types import (
     build_hierarchy,
 )
 from ceph_tpu_torch.osdmap import osdmap as posd
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 
 def port_rows(cmap, ruleno, xs, result_max, weights):

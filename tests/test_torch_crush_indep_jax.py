@@ -28,6 +28,7 @@ from ceph_tpu_torch.crush.types import (
     RULE_CHOOSELEAF_INDEP,
     RULE_SET_CHOOSE_TRIES,
 )
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "crush_golden.jsonl"
 INDEP = {RULE_CHOOSE_FIRSTN: RULE_CHOOSE_INDEP,

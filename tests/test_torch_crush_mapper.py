@@ -43,6 +43,7 @@ from ceph_tpu_torch.crush.types import (
     build_three_level,
 )
 from ceph_tpu_torch.utils.perf import KERNELS
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "crush_golden.jsonl"
 STRAW2 = [d for d in map(json.loads, GOLDEN.open())

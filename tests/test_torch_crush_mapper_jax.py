@@ -17,6 +17,7 @@ from ceph_tpu.crush.types import ChooseArg as JChooseArg
 from ceph_tpu.crush.types import build_three_level as jbuild_three_level
 from ceph_tpu_torch.crush.mapper import TensorMapper
 from ceph_tpu_torch.crush.types import ChooseArg, build_three_level
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 N = 1500
 

@@ -28,6 +28,7 @@ from ceph_tpu_torch.crush import Bucket, CrushMap, Rule, ScalarMapper, Tunables
 from ceph_tpu_torch.crush import ln as pln
 from ceph_tpu_torch.crush.types import ChooseArg
 from ceph_tpu_torch.ops import jenkins
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "crush_golden.jsonl"
 SCENARIOS = [json.loads(line) for line in GOLDEN.open()]

@@ -29,6 +29,7 @@ from ceph_tpu_torch.crush import tester as ptester
 from ceph_tpu_torch.crush import types as ptypes
 from ceph_tpu_torch.crush.scalar import ScalarMapper
 from ceph_tpu_torch.utils.perf import KERNELS
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 TEXT_MAP = """
 # begin crush map

@@ -18,6 +18,7 @@ import torch
 from ceph_tpu.ec import factory as jfactory
 from ceph_tpu_torch.ec import ECError, factory
 from ceph_tpu_torch.ec.codec import engine_from_reference
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "ec_golden.jsonl"
 

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from ceph_tpu.ec import matrices as jmatrices
 from ceph_tpu.ops import gf8 as jgf8
 from ceph_tpu_torch.ops import gf8, gf8_cuda
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 # the ragged planar shapes of the TPU kernel check (k, m, packed columns)
 PLANAR_SHAPES = [(8, 4, 2048 * 3), (8, 4, 2048 * 2 + 100), (4, 2, 5000),

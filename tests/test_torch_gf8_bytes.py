@@ -30,6 +30,7 @@ from ceph_tpu.ops import gf8_pallas as jpallas
 from ceph_tpu_torch.ec import factory
 from ceph_tpu_torch.ec.codec import _lane_blocks, _lane_expand
 from ceph_tpu_torch.ops import gf8_bytes_cuda
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 # the TPU kernel's check shapes (k, m, N)
 TPU_CHECK_SHAPES = [(8, 4, 16384 * 3), (8, 4, 16384 * 2 + 1000),

@@ -13,6 +13,7 @@ import torch
 
 from ceph_tpu.ops import gfw as jgfw
 from ceph_tpu_torch.ops import gf8, gfw
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 WIDTHS = [8, 16, 32]
 

@@ -29,6 +29,7 @@ from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
 from ceph_tpu_torch.ops import checksum, gf8, profiling
 from ceph_tpu_torch.ops.sloppy_crc import SloppyCRCMap
 from ceph_tpu_torch.utils.perf import KERNELS
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 ALGOS = ("none", "crc32c", "crc32c_16", "crc32c_8", "xxhash32", "xxhash64")
 

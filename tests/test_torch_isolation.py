@@ -12,7 +12,10 @@
   where there is none; an ``EncodeBatcher`` tick of a codec off the CPU
   never answers with the plain version of B1 or B2;
 - a ``Monitor`` and a ``MgrDaemon`` that name no device run on CUDA, and
-  raise where there is none.
+  raise where there is none;
+- so do an ``OSDDaemon``, a ``RadosClient`` and ``start_cluster``; and a
+  CPU cluster started, written and read in a fresh process leaves JAX and
+  ``ceph_tpu`` out of ``sys.modules``.
 """
 
 import os
@@ -29,6 +32,7 @@ import ceph_tpu_torch
 from ceph_tpu_torch.ec import codec as pcodec
 from ceph_tpu_torch.ec import factory
 from ceph_tpu_torch.ops import _build, gf8_bytes_cuda, gf8_cuda
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 PKG = pathlib.Path(ceph_tpu_torch.__file__).parent
 REPO = PKG.parent
@@ -84,6 +88,34 @@ def test_import_leaves_jax_and_reference_out():
         "import ceph_tpu_torch.balance.balancer\n"
         "import ceph_tpu_torch.balance.autoscaler\n"
         "import ceph_tpu_torch.balance.reshape\n"
+        "import ceph_tpu_torch.analysis, ceph_tpu_torch.analysis.racecheck\n"
+        "import ceph_tpu_torch.cluster.pglog, ceph_tpu_torch.cluster.snaps\n"
+        "import ceph_tpu_torch.cluster.objclass\n"
+        "import ceph_tpu_torch.cluster.dmclock\n"
+        "import ceph_tpu_torch.cluster.sharded_wq, ceph_tpu_torch.cluster.pg\n"
+        "import ceph_tpu_torch.cluster.backend_replicated\n"
+        "import ceph_tpu_torch.cluster.backend_ec\n"
+        "import ceph_tpu_torch.cluster.client_ops\n"
+        "import ceph_tpu_torch.cluster.tiering\n"
+        "import ceph_tpu_torch.cluster.recovery, ceph_tpu_torch.cluster.scrub\n"
+        "import ceph_tpu_torch.cluster.osd, ceph_tpu_torch.cluster.objecter\n"
+        "import ceph_tpu_torch.cluster.vstart\n"
+        "import asyncio\n"
+        "from ceph_tpu_torch.cluster.vstart import start_cluster\n"
+        "async def io():\n"
+        "    c = await start_cluster(3, device='cpu')\n"
+        "    try:\n"
+        "        cl = await c.client()\n"
+        "        for kind, prof in (('erasure', {'plugin': 'isa', 'k': '2',"
+        " 'm': '1'}), ('replicated', None)):\n"
+        "            p = await cl.pool_create(kind, kind, pg_num=4,"
+        " ec_profile=prof)\n"
+        "            await cl.ioctx(p).write_full('o', b'y' * 5000)\n"
+        "            assert await cl.ioctx(p).read('o') == b'y' * 5000\n"
+        "        await c.osds[0].scrub_pg(next(iter(c.osds[0].pgs.values())))\n"
+        "    finally:\n"
+        "        await c.stop()\n"
+        "asyncio.run(asyncio.wait_for(io(), 60))\n"
         "import tempfile\n"
         "from ceph_tpu_torch.cluster.bluestore import BlueStore\n"
         "from ceph_tpu_torch.cluster.store import Transaction\n"
@@ -459,3 +491,33 @@ def test_monitor_and_mgr_default_to_cuda_and_refuse_cpu_fallback(
     mon = Monitor(build_simple_osdmap(8, 2, 16, device="cpu"))
     assert mon.device == mon.osdmap.device == torch.device("cuda", 0)
     assert MgrDaemon(("127.0.0.1", 1)).device == torch.device("cuda", 0)
+
+
+def test_osd_client_and_cluster_default_to_cuda_and_refuse_cpu_fallback(
+        monkeypatch):
+    """An OSD, a client and ``start_cluster`` asked for no device want
+    CUDA and raise without it (before any daemon starts); with a card they
+    name it by index."""
+    import asyncio
+
+    from ceph_tpu_torch.cluster.objecter import RadosClient
+    from ceph_tpu_torch.cluster.osd import OSDDaemon
+    from ceph_tpu_torch.cluster.vstart import start_cluster
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: OSDDaemon(0, ("127.0.0.1", 1), **kw),
+                 lambda **kw: RadosClient(("127.0.0.1", 1), **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(device="cuda")
+    assert OSDDaemon(0, ("127.0.0.1", 1), device="cpu").device.type == "cpu"
+    assert RadosClient(("127.0.0.1", 1),
+                       device="cpu").objecter.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        asyncio.run(asyncio.wait_for(start_cluster(3), 30))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert OSDDaemon(0, ("127.0.0.1", 1)).device == torch.device("cuda", 0)
+    assert RadosClient(("127.0.0.1", 1)).objecter.device == \
+        torch.device("cuda", 0)

@@ -31,6 +31,7 @@ from ceph_tpu.ec.interface import ECError as JECError
 from ceph_tpu_torch.ec import ECError, factory
 from ceph_tpu_torch.ec import jerasure, matrices
 from ceph_tpu_torch.ops import gf8_bytes_cuda, gf8_cuda
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "ec_golden.jsonl"
 

@@ -19,6 +19,7 @@ from ceph_tpu.ops import gfw as jgfw
 from ceph_tpu_torch.ec import ECError, factory
 from ceph_tpu_torch.ec import liberation as lib
 from ceph_tpu_torch.ops import gfw
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 MDS_CASES = (
     [("liberation", k, w) for k, w in [(2, 3), (4, 7), (7, 7), (5, 11)]]

@@ -23,6 +23,7 @@ from ceph_tpu.ec import lrc as jlrc
 from ceph_tpu.ec.interface import ECError as JECError
 from ceph_tpu_torch.ec import ECError, factory
 from ceph_tpu_torch.ec.lrc import ErasureCodeLrc, make_lrc
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 KML = {"k": "4", "m": "2", "l": "3"}
 EXPLICIT = {

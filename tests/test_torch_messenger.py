@@ -45,6 +45,7 @@ import ceph_tpu_torch.cluster.messenger as messenger
 import ceph_tpu_torch.osdmap.osdmap as osdmap
 import ceph_tpu_torch.utils.config as config
 import ceph_tpu_torch.utils.lockdep as lockdep
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 
 # test messages of each package (module level: frames are pickles)

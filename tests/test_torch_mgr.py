@@ -42,6 +42,7 @@ from ceph_tpu.crush import ScalarMapper as JScalarMapper
 from test_torch_mon import (PORT, REF, command, fast_config, leader_of,
                             map_state, plain, run, settle, start_quorum,
                             stop_all, wait_for)
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 REF.mgr, REF.balance, REF.perf = jmgr, jbalance, jperf
 PORT.mgr, PORT.balance, PORT.perf = pmgr, pbalance, pperf

@@ -52,6 +52,7 @@ import ceph_tpu_torch.crush.types as ptypes
 import ceph_tpu_torch.osdmap.osdmap as posd
 import ceph_tpu_torch.utils.config as pconfig
 import ceph_tpu_torch.utils.lockdep as plockdep
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 REF = types.SimpleNamespace(
     name="ref", mon=jmon, M=jmessages, msgr=jmessenger, types=jtypes,

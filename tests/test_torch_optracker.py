@@ -28,6 +28,7 @@ import ceph_tpu_torch.chaos.points as points
 import ceph_tpu_torch.cluster.optracker as optracker
 import ceph_tpu_torch.utils.config as config
 import ceph_tpu_torch.utils.lockdep as lockdep
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 REF = types.SimpleNamespace(optracker=joptracker, clock=jclock,
                             counters=jcounters, config=jconfig,

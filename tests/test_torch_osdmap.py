@@ -27,6 +27,7 @@ from ceph_tpu.osdmap import osdmap as josd
 from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
 from ceph_tpu_torch.osdmap import balancer as pbalancer
 from ceph_tpu_torch.osdmap import osdmap as posd
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 REP, EC = posd.POOL_TYPE_REPLICATED, posd.POOL_TYPE_ERASURE
 KINDS = [(REP, 3), (EC, 4)]

@@ -39,6 +39,7 @@ from ceph_tpu_torch.ec import factory, matrices
 from ceph_tpu_torch.parallel import engine, mesh
 from ceph_tpu_torch.parallel import (MeshECEngine, crush_batch_sharded,
                                      distributed_ec_step, make_mesh)
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 CPU8 = ["cpu"] * 8
 # two distinct devices: the sharded placement then runs one host thread
@@ -255,13 +256,24 @@ def test_wrap_codec_for_mesh_equals_jax(name, n_devices):
     got = engine.wrap_codec_for_mesh(codec, n_devices, devices=CPU8)
     jgot = jengine.wrap_codec_for_mesh(jcodec, n_devices)
     wrapped = isinstance(got, engine.MeshCodecAdapter)
-    assert wrapped == isinstance(jgot, jengine.MeshCodecAdapter)
-    assert wrapped == (name != "reed_sol_van_w16")
+    # the port leaves packet codecs unwrapped where the reference wraps
+    # them (ROADMAP §C): its cauchy codec is compared with the reference
+    # codec itself, not with the reference's adapter
+    packet = name == "cauchy_good"
+    assert wrapped == (isinstance(jgot, jengine.MeshCodecAdapter)
+                       and not packet)
+    assert wrapped == (name not in ("reed_sol_van_w16", "cauchy_good"))
     mesh_shape = engine.mesh_for_codec(codec, n_devices, devices=CPU8).shape
     assert mesh_shape == dict(jengine.mesh_for_codec(jcodec,
                                                      n_devices).shape)
     if not wrapped:
         assert got is codec
+        if packet:
+            k = codec.get_data_chunk_count()
+            data = np.random.default_rng(n_devices).integers(
+                0, 256, (5, k, 64), dtype=np.uint8)
+            assert np.array_equal(got.encode_batch(data).numpy(),
+                                  np.asarray(jcodec.encode_batch(data)))
         return
     assert got._mesh_engine.mesh.shape == mesh_shape
     k = codec.get_data_chunk_count()
@@ -275,19 +287,28 @@ def test_wrap_codec_for_mesh_equals_jax(name, n_devices):
 
 
 def test_cauchy_adapter_keeps_the_reference_rule():
-    """ROADMAP §C: both packages wrap a cauchy codec (it has a GF(2^8)
-    ``coding`` matrix), and the mesh engine then computes a bytewise RS
-    code where the codec lays packets out: the adapter's parity is the
-    reference adapter's, not the codec's."""
+    """ROADMAP §C: the reference wraps a cauchy codec (it has a GF(2^8)
+    ``coding`` matrix) and its mesh engine then computes a bytewise RS
+    code where the codec lays packets out.  The port leaves every packet
+    codec unwrapped, so a cauchy pool behind the mesh seam keeps the
+    codec's own parity, which is the reference codec's."""
     prof = WRAP_PROFILES["cauchy_good"]
     codec = factory(prof, device="cpu")
     got = engine.wrap_codec_for_mesh(codec, 4, devices=CPU8)
-    jgot = jengine.wrap_codec_for_mesh(jfactory(prof), 4)
+    assert got is codec
+    jcodec = jfactory(prof)
+    assert isinstance(jengine.wrap_codec_for_mesh(jcodec, 4),
+                      jengine.MeshCodecAdapter)
     data = np.random.default_rng(0).integers(0, 256, (4, 4, 64),
                                              dtype=np.uint8)
     parity = got.encode_batch(data)
-    assert np.array_equal(parity.numpy(), np.asarray(jgot.encode_batch(data)))
-    assert not torch.equal(parity, codec.encode_batch(data))
+    assert torch.equal(parity, codec.encode_batch(data))
+    assert np.array_equal(parity.numpy(), np.asarray(jcodec.encode_batch(data)))
+    # and the liberation family (a packetsize too) stays unwrapped
+    lib = factory({"plugin": "jerasure", "technique": "liberation",
+                   "k": "4", "m": "2", "w": "7", "packetsize": "8"},
+                  device="cpu")
+    assert engine.wrap_codec_for_mesh(lib, 4, devices=CPU8) is lib
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ import ceph_tpu.utils.lockdep as jlockdep
 import ceph_tpu_torch.cluster.messages as pmessages
 import ceph_tpu_torch.cluster.paxos as ppaxos
 import ceph_tpu_torch.utils.lockdep as plockdep
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 REF = types.SimpleNamespace(name="ref", paxos=jpaxos, M=jmessages)
 PORT = types.SimpleNamespace(name="port", paxos=ppaxos, M=pmessages)

@@ -24,6 +24,7 @@ from ceph_tpu.ec.interface import ECError as JECError
 from ceph_tpu_torch.ec import ECError, factory
 from ceph_tpu_torch.ec import shec
 from ceph_tpu_torch.ec.shec import ErasureCodeShec, make_shec, shec_coding_matrix
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "ec_golden.jsonl"
 

@@ -48,6 +48,7 @@ import ceph_tpu_torch.ops.crc32c as pcrc
 import ceph_tpu_torch.utils.config as config
 from ceph_tpu_torch.ec import factory
 from ceph_tpu_torch.ec import stripe
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 REF = types.SimpleNamespace(
     store=jstore, kv=jkv, filestore=jfilestore, bluestore=jbluestore,

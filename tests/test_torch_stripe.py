@@ -24,6 +24,7 @@ from ceph_tpu_torch.ec import stripe
 from ceph_tpu_torch.ops import gf8
 from ceph_tpu_torch.ops.crc32c import crc32c_rows
 from ceph_tpu_torch.utils.perf import KERNELS
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 K, M, UNIT = 3, 2, 64
 N = K + M

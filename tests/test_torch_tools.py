@@ -24,6 +24,7 @@ from ceph_tpu.tools import osdmaptool as josdmaptool
 from ceph_tpu_torch.crush.types import build_hierarchy
 from ceph_tpu_torch.osdmap import osdmap as posd
 from ceph_tpu_torch.tools import crushtool, osdmaptool
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 
 @pytest.fixture(autouse=True)

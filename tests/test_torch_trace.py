@@ -30,6 +30,7 @@ import ceph_tpu_torch.trace.perfetto as perfetto
 import ceph_tpu_torch.trace.postmortem as pm
 import ceph_tpu_torch.utils.config as config
 import ceph_tpu_torch.utils.perf as perf
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 REF = types.SimpleNamespace(trace=jtrace, attr=jattr, flight=jflight,
                             perfetto=jperfetto, pm=jpm, config=jconfig,

@@ -47,6 +47,7 @@ import ceph_tpu_torch.utils.perf as perf
 import ceph_tpu_torch.utils.schedfuzz as schedfuzz
 import ceph_tpu_torch.utils.tasks as tasks
 import ceph_tpu_torch.trace.flight as flight
+from tests._torch_threads import _one_torch_thread  # noqa: F401  (fixture)
 
 REF = types.SimpleNamespace(
     perf=jperf, config=jconfig, backoff=jbackoff, compressor=jcompressor,
@@ -622,8 +623,8 @@ def test_admin_socket_replies_equal_reference():
     assert replies["boom"][0] == -22 and "ValueError" in replies["boom"][1]
     assert replies["nope"][0] == -22
     # the port serves every command of the reference's common set except
-    # the two that read the static-analysis package
-    assert set(jcmds) - set(cmds) == {"race report", "graftlint report"}
+    # the one that reads the static-analysis package
+    assert set(jcmds) - set(cmds) == {"graftlint report"}
     assert {k: v for k, v in jcmds.items() if k in cmds} == cmds
 
 
