@@ -25,9 +25,10 @@ Counterpart of ``ceph_tpu/cluster/``.  The port holds so far:
   scrub, the op shards and their QoS queue (``sharded_wq``,
   ``dmclock``);
 - ``objecter`` (``Objecter``, ``RadosClient``, ``IoCtx``) and ``vstart``
-  (``start_cluster``, ``Cluster``): a whole in-process cluster on one
-  device.
-
-The MDS, the file system, RBD, RGW and the client tools arrive in a
-later slice.
+  (``start_cluster``, ``Cluster``, ``Cluster.start_mds``): a whole
+  in-process cluster on one device;
+- the clients: ``striper``, ``rbd`` and ``rbd_mirror`` (block images),
+  ``rgw``, ``rgw_http`` and ``rgw_sync`` (the object gateway, its S3 and
+  Swift frontend, multisite sync), ``fs`` and ``mds`` (CephFS and its
+  metadata server).
 """

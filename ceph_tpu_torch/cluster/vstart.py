@@ -73,6 +73,9 @@ class Cluster:
     clients: List[RadosClient] = field(default_factory=list)
     mgr: Optional[MgrDaemon] = None
     mgr_addr: Optional[tuple] = None
+    mds: Optional[object] = None       # rank-0 MDSDaemon (cluster/mds.py)
+    mds_addr: Optional[tuple] = None
+    mdss: Optional[dict] = None        # rank -> MDSDaemon (multi-active)
     # the card every daemon and client of this cluster runs its device
     # work on (or the CPU, for the plain versions)
     device: Optional[object] = None
@@ -89,6 +92,13 @@ class Cluster:
     # mid-flight).  Self-discarding; drain_chaos() awaits stragglers so
     # a scenario's heal phase never races a crash still in progress.
     _chaos_tasks: set = field(default_factory=set)
+    # per-rank config copies of crashed MDS ranks: like osd_configs, a
+    # restarted rank resumes its OWN config so injected fault options
+    # (e.g. an armed replay-seam crash point) survive the bounce; the
+    # rank's pools ride along so a babysitter can restart it without
+    # re-deriving them
+    mds_configs: Dict[int, Config] = field(default_factory=dict)
+    mds_pools: Dict[int, tuple] = field(default_factory=dict)
     # graft-blackbox: triggered postmortem bundles.  Every
     # produced bundle record lands here ({kind, reason, path, bundle});
     # _bb_seen dedups triggers (one bundle per (kind, reason) — a
@@ -206,6 +216,79 @@ class Cluster:
         return self.mon_addrs[0] if len(self.mon_addrs) == 1 \
             else self.mon_addrs
 
+    async def start_mds(self, meta_pool: int, data_pool: int,
+                        rank: int = 0):
+        """Start (or restart) an active MDS rank over existing pools
+        (multiple ranks = multi-active, subtree-partitioned).  A rank
+        crashed at a chaos seam resumes its own per-rank config copy
+        (mds_configs), like an OSD revive.  The rank runs on the
+        cluster's ``device``."""
+        from ceph_tpu_torch.cluster.mds import MDSDaemon
+
+        cfg = self.mds_configs.pop(rank, None) or self.config
+        daemon = MDSDaemon(self.mon_addr, meta_pool, data_pool,
+                           config=cfg, rank=rank, device=self.device)
+        self._arm_chaos_crash_mds(daemon)
+        self.mds_pools[rank] = (meta_pool, data_pool)
+        addr = await daemon.start()
+        if self.mdss is None:
+            self.mdss = {}
+        self.mdss[rank] = daemon
+        if rank == 0 or self.mds is None:
+            self.mds = daemon
+            self.mds_addr = addr
+        return daemon
+
+    def _arm_chaos_crash_mds(self, daemon) -> None:
+        """Install the MDS crash-point callback: when the rank's serve
+        or replay path trips an armed chaos_crash_point, the cluster
+        performs the same bookkeeping as crash_mds (per-rank config
+        remembered; the rank's durable state already lives in RADOS)."""
+        from ceph_tpu_torch.utils.tasks import track_task
+
+        def fire(point: str) -> None:
+            async def _crash():
+                if (self.mdss or {}).get(daemon.rank) is daemon:
+                    await self.crash_mds(daemon.rank)
+                else:
+                    # crashed during boot, before registration: remember
+                    # the config and put the half-started daemon down
+                    self.mds_configs.setdefault(daemon.rank,
+                                                daemon.config)
+                    await daemon.stop()
+
+            track_task(self._chaos_tasks,
+                       asyncio.get_event_loop().create_task(_crash()))
+
+        daemon._chaos_crash_cb = fire
+
+    async def crash_mds(self, rank: int) -> None:
+        """Power-cut an MDS rank: stop it at this instant,
+        remembering its per-rank config for the restart.  The MDS holds
+        no local store — its journal and dirfrags live in RADOS — so
+        the restarted rank's boot replay is the recovery path."""
+        daemon = (self.mdss or {}).pop(rank, None)
+        if daemon is None:
+            return
+        self.mds_configs[rank] = daemon.config
+        if self.mds is daemon:
+            self.mds = next(iter((self.mdss or {}).values()), None)
+        daemon._stopped = True
+        await daemon.stop()
+
+    @property
+    def mon(self) -> Monitor:
+        """The authoritative monitor: the quorum leader (or the only one)."""
+        for m in self.mons:
+            if m.is_leader:
+                return m
+        return self.mons[0]
+
+    @property
+    def mon_addr(self):
+        return self.mon_addrs[0] if len(self.mon_addrs) == 1 \
+            else self.mon_addrs
+
     async def client(self, name: str = "admin") -> RadosClient:
         c = RadosClient(self.mon_addr, name=name, config=self.config,
                         device=self.device)
@@ -214,8 +297,8 @@ class Cluster:
         return c
 
     def daemon_addr(self, name: str):
-        """Resolve a daemon name ('osd.2', 'mon', 'mon.1', 'mgr') to its
-        messenger address — the 'ceph daemon <name>'
+        """Resolve a daemon name ('osd.2', 'mon', 'mon.1', 'mgr',
+        'mds.0') to its messenger address — the 'ceph daemon <name>'
         target-resolution seam."""
         kind, _, num = name.partition(".")
         if kind == "mon":
@@ -230,6 +313,12 @@ class Cluster:
             if self.mgr_addr is None:
                 raise KeyError("no mgr running")
             return self.mgr_addr
+        if kind == "mds":
+            rank = int(num) if num else 0
+            daemon = (self.mdss or {}).get(rank)
+            if daemon is None:
+                raise KeyError(f"no such daemon {name}")
+            return daemon.messenger.my_addr
         raise KeyError(f"unknown daemon kind {kind!r}")
 
     async def daemon_command(self, name: str, cmd, timeout: float = 30.0):
@@ -425,6 +514,11 @@ class Cluster:
         await self.drain_blackbox()
         for c in self.clients:
             await c.shutdown()
+        for d in (self.mdss or {}).values():
+            await d.stop()
+        if self.mds is not None and self.mds not in \
+                (self.mdss or {}).values():
+            await self.mds.stop()
         if self.mgr is not None:
             await self.mgr.stop()
         for osd in self.osds.values():

@@ -15,10 +15,12 @@ the identical math as one GF(2) matmul:
   ``gf8.planar_matmul`` on ``(r*w, k*w)`` bit-matrices, kernel B1 on the
   card, for every w.
 - ``BitmatrixCodec`` (jerasure cauchy_* and the liberation family):
-  packet-interleaved codes defined by an (m*w, k*w) 0/1 matrix.  The byte
-  layout stays on ``gf8.bitmatrix_matmul`` with the matrix expanded over
-  the 8 byte lanes; the packet-planar layout (``encode_planar``/
-  ``decode_planar``) runs ``_planar_rows_matmul``, kernel B2 on the card.
+  packet-interleaved codes defined by an (m*w, k*w) 0/1 matrix.  The
+  single-stripe byte layout (``encode_chunks``/``decode_chunks``) stays
+  on ``gf8.bitmatrix_matmul`` with the matrix expanded over the 8 byte
+  lanes; the batched byte layout (``encode_batch``/``decode_batch``) and
+  the packet-planar layout (``encode_planar``/``decode_planar``) run the
+  same map as kernel B2 on the card.
 
 The GF(2^16)/GF(2^32) fields use the scalar ``gfw`` field for their
 coding, generator and decode matrices (k x m words, host).
@@ -74,7 +76,7 @@ def _lane_blocks(mat_bytes: bytes, shape, device: torch.device) -> torch.Tensor:
 
 
 def _pkt_batch_apply(lane_mat: torch.Tensor, data: torch.Tensor, w: int,
-                     p: int, src=None) -> torch.Tensor:
+                     p: int, src=None, blocks=None) -> torch.Tensor:
     """Packet-interleaved batch apply for bit-matrix codes.
 
     data (B, c, S) where every chunk is super-blocks of w*p bytes (packet
@@ -82,14 +84,16 @@ def _pkt_batch_apply(lane_mat: torch.Tensor, data: torch.Tensor, w: int,
     byte-lane-expanded (8rw, 8cw) selection matrix.  One matmul for the
     whole batch (jerasure_schedule_encode semantics over all stripes at
     once, reference ErasureCodeJerasure.cc:260).  ``src`` optionally
-    selects source rows first."""
+    selects source rows first.  The matmul is kernel B2 for a CUDA tensor
+    (``blocks`` its cached table), its plain version for a CPU tensor:
+    the byte-lane map ``gf8.bitmatrix_matmul`` computes, bit for bit."""
     if src is not None:
         data = data[:, list(src), :]
     b, c, s = data.shape
     ns = s // (w * p)
     rows = (data.reshape(b, c, ns, w, p).permute(1, 3, 0, 2, 4)
             .reshape(c * w, b * ns * p))
-    out = gf8.bitmatrix_matmul(lane_mat, rows)          # (r*w, b*ns*p)
+    out = gf8_bytes_cuda.bitmatrix_matmul(lane_mat, rows, blocks)
     r = out.shape[0] // w
     return (out.reshape(r, w, b, ns, p).permute(2, 0, 3, 1, 4)
             .reshape(b, r, s))
@@ -502,9 +506,10 @@ class BitmatrixCodec(MatrixCodec):
     def encode_batch(self, data) -> torch.Tensor:
         data = _to_device(data, self.device)
         self._check_layout(int(data.shape[2]))
-        lane = self._lane(self._encode_bits())
+        lane, blocks = self._lane_and_blocks(self._encode_bits())
         _record_kernel("ec_matmul", data.numel())
-        return _pkt_batch_apply(lane, data, self.w, self.packetsize)
+        return _pkt_batch_apply(lane, data, self.w, self.packetsize,
+                                blocks=blocks)
 
     def decode_batch(self, erasures: Tuple[int, ...], chunks,
                      want: Tuple[int, ...] = None) -> torch.Tensor:
@@ -514,9 +519,11 @@ class BitmatrixCodec(MatrixCodec):
         src = avail[: self.k]
         chunks = _to_device(chunks, self.device)
         self._check_layout(int(chunks.shape[2]))
-        lane = self._lane(self._decode_bits(src, tuple(want)))
+        lane, blocks = self._lane_and_blocks(
+            self._decode_bits(src, tuple(want)))
         _record_kernel("ec_matmul", chunks.numel())
-        return _pkt_batch_apply(lane, chunks, self.w, self.packetsize, src)
+        return _pkt_batch_apply(lane, chunks, self.w, self.packetsize, src,
+                                blocks)
 
     # -- packet-planar layout ----------------------------------------------
     #

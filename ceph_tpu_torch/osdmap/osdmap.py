@@ -22,6 +22,7 @@ of one map that share the cache place each pool once.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -582,8 +583,11 @@ class OSDMap:
         """Every input of ``_pool_raw(pool_id)``: the CRUSH map with the
         pool's own rule in place of the rule list (another pool's rule
         places nothing of this pool), the OSD count, weights and
-        existence, the pool and its upmap entries."""
-        pool = self.pools[pool_id]
+        existence, the pool and its upmap entries.  The pool's snapshot
+        fields place nothing: a snapshot (an RBD ``snap_create`` is a
+        map epoch) keeps the key, so it does not remap the pool."""
+        pool = dataclasses.replace(self.pools[pool_id], snap_seq=0,
+                                   snaps={}, removed_snaps=())
         crush = dict(vars(self.crush))
         rules = crush.pop("rules")
         rule = rules[pool.crush_rule] if 0 <= pool.crush_rule < len(rules) \

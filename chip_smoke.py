@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement, device mesh, OSD store path, control plane and OSD cluster on the CUDA cards.
+"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement, device mesh, OSD store path, control plane, OSD cluster and its clients on the CUDA cards.
 
 Run from the repository root with no arguments:
 
@@ -64,16 +64,17 @@ non-zero if any of them fails:
    (b) ``pool_mapping`` of an LRC k4m2l3 pool of 65,536 PGs on the rule
    ``ErasureCodeLrc.create_rule`` writes for ``crush-locality=rack``;
    (c) ``TensorMapper.do_rule_batch`` of the replicated rule under a
-   balancer weight set on the root's 39 racks, 65,536 PGs.  Checked: 2,000
+   balancer weight set on the root's 39 racks, 65,536 PGs.  Checked: 1,000
    sampled PGs of each of (a), (b), (c) and of the diff against the
-   scalar chain, the first 65,536 PGs of (a) against
+   scalar chain, the first 16,384 PGs of (a) against
    ``TensorMapper(device="cpu")``, distinct hosts in every PG, no scalar
    fallback and no padded lanes.  Then (d) ROADMAP §C1's repro on the
    card (``build_hierarchy(2, 4)``, an erasure pool of size 7 and 16,384
-   PGs on ``chooseleaf indep 0 type 0`` with OSDs 1 and 5 out), every PG
-   against the scalar chain, and the same rule as a 65,536-PG erasure
-   pool of the 9,984-OSD map with one host out, 2,000 sampled PGs against
-   it (the scalar chain runs in a pool of spawned worker processes);
+   PGs on ``chooseleaf indep 0 type 0`` with OSDs 1 and 5 out), 4,096
+   sampled PGs against the scalar chain, and the same rule as a
+   65,536-PG erasure pool of the 9,984-OSD map with one host out, 1,000
+   sampled PGs against it (the scalar chain runs in a pool of spawned
+   worker processes);
    (e) one balancer round,
    ``balance.scorer.calc_pg_upmaps_vectorized`` with the mgr's defaults
    (``max_deviation_ratio=0.05``, ``max_moves=16``), on a replicated
@@ -140,7 +141,7 @@ non-zero if any of them fails:
    store.  Checked: every monitor and the mgr at one epoch with equal
    pools, upmaps, pg_temp, weights and flags; each round's moves
    committed as planned, legal, the skew lower; each mint's entries equal
-   to the per-PG scalar mint on 2,000 sampled PGs of each pool, every PG
+   to the per-PG scalar mint on 1,000 sampled PGs of each pool, every PG
    its upmaps touched and the 64 wholesale PGs (64 entries), and
    ``pool_raw_up`` equal to the scalar chain on the same PGs (the scalar
    chain in spawned workers); the revived monitor resumed once from its
@@ -158,11 +159,13 @@ non-zero if any of them fails:
    at rest, kernel B2) and a replicated size-3 pool of 256 PGs; 16, 8
    and 8 objects of 4 MiB from the seed (half of rados bench's 32, 16
    and 16), written and read back with 16 ops in flight (rados bench's
-   default); both EC pools deep-scrubbed (each OSD its primary PGs, side
-   by side); one OSD stopped until it is down and out and every PG is
+   default); the EC PGs holding them deep-scrubbed (each OSD its
+   primary PGs, side by side); one OSD stopped until it is down and out and every PG is
    clean as the cluster reports it (then up to 30 s for the last pushes
-   to land on every acting member), every object read again; the OSD
-   revived on an empty BlueStore, marked in and backfilled.  Checked:
+   to land on every acting member, and until no OSD peers, retries,
+   recovers or launches a kernel for 1 s), every object read again; the
+   OSD revived on an empty BlueStore, marked in and backfilled, and quiet
+   in the same way before the next window opens.  Checked:
    every read equals what was written, the scrub finds nothing, every
    acting member of every object's PG holds it after the recovery and
    the backfill, every EC shard every store holds equals the plain CPU
@@ -174,7 +177,39 @@ non-zero if any of them fails:
    and clean, the backfill, the map advances summed over the OSDs per
    epoch (the daemons share one placement cache) and one OSD's unshared
    placement of one epoch, the client's scalar targeting and the
-   longest event-loop block;
+   longest event-loop block; each window's recovery work (peering
+   rounds, recoveries, pushes, read repairs) beside its launches.  Then,
+   on the same cluster, the client
+   windows (``ceph_tpu_torch/{tools/rados,cluster/rbd,cluster/mds,
+   cluster/fs,cluster/striper,cluster/rgw,cluster/rgw_http,
+   tools/ec_sidecar}.py``): ``tools/rados.bench`` at Ceph's defaults
+   (4 MiB blocks, 16 in flight) for 3 s of ``write`` and 3 s of ``seq``
+   on the ISA pool, every read compared with the block; an RBD image of
+   64 MiB on the ISA pool at RBD's default layout (4 MiB objects,
+   ``stripe_unit`` the object size, ``stripe_count`` 1): 16 sequential
+   4 MiB writes with 8 in flight, 64 random 4 KiB overwrites of distinct
+   blocks from the seed (fio's ``randwrite 4k``), a full read against a
+   host model of the image, a snapshot and its full read;
+   ``Cluster.start_mds`` with its metadata on the replicated pool and
+   its data on the cauchy pool, an ``MDSClient``: ``mkdir /d``, 8 files
+   of 4 MiB from the seed written and read back, ``listdir`` and
+   ``stat``; RGW on the replicated pool behind ``RGWFrontend`` on
+   loopback with one account: signed PUT and GET of 8 objects of 4 MiB
+   and one multipart upload of three 5 MiB parts, every ETag and byte
+   checked; the EC sidecar (``ec_sidecar.Sidecar`` on the card, a unix
+   socket in the phase's temporary directory), the native shim and its
+   driver built with ``g++`` from ``native/ec_sidecar/`` into
+   ``ceph_tpu_torch/_build/ec_sidecar/`` (ISA k8m4, 512 B chunks: the
+   round trip and 200 serial encodes, ``"native_seam": "ok"``), then 64
+   concurrent cauchy_good k8m4 encodes of 16 KiB chunks and one decode
+   of two erasures over the documented protocol, fewer batches than
+   requests and every reply equal to ``factory(profile, device="cpu")``'s;
+   then a deep scrub of the EC PGs the windows wrote (nothing
+   inconsistent), and every EC shard of the bench, RBD and CephFS data
+   objects in every store equal to the plain CPU codec's.  Printed
+   beside the card: each window's MB/s and p50/p99 latencies, the MDS
+   start and create times, the sidecar's batches and the driver's rate,
+   the scrub and the longest loop block of each window;
 10. one launch: a torch.profiler trace of one cauchy ``encode_planar``
    call shows exactly one device kernel, B2's staged kernel, and no
    ``pack_blocks_kernel``;
@@ -186,13 +221,15 @@ non-zero if any of them fails:
    w=32 and SHEC encode shapes with 16 MiB of input planes;
    ``ops/profiling.device_loop_slope`` of B1 at its headline shape (each
    L-step chain one CUDA graph) beside its CUDA-event median; then the
-   placement entry points' wall medians over 3 calls (``do_rule_batch``
-   of 1,000,000 PGs at the default chunk and in one chunk, with a
+   placement entry points' wall times of one call (``PLACEMENT_REPS``;
+   no warm-up for an entry point that already ran on the same inputs)
+   (``do_rule_batch`` of 1,000,000 PGs at the default chunk and in one
+   chunk, with a
    torch.profiler count of device kernels, kernel time, host syncs and
    the device's idle share; ``pool_mapping``; ``rebalance_diff``;
    ``bench_map``); and the mesh encode and one-erasure decode against the
    single-device codec (CUDA events on every device of the mesh, and wall
-   medians), and the wall medians of ``crush_batch_sharded`` and
+   medians), and the wall times of ``crush_batch_sharded`` and
    ``do_rule_batch`` on the 1,000,000 PGs.
 
 Phases 2, 3, each path of phase 4, phase 5 (a)-(c), (d), (e), phase 6,
@@ -209,9 +246,12 @@ and not B2, its pool B launches B2, every launch staged; the control
 plane launches neither, and its ``crush_map_calls`` are each mint's 2
 per pool of both maps (0, 2, 4, 4, 4) and each balancer plan's 2 per
 pool for its skews and 1 per pool per optimizer measurement.  Phase 9's
-windows are each pool's I/O, the scrub, the recovery and the backfill:
-the ISA pool's launches B1 and not B2, the cauchy pool's B2 and not B1,
-the replicated pool's neither, every launch staged.  Before the
+windows are each pool's I/O, the scrub, the recovery, the backfill and
+the client windows: the ISA pool's launches B1 and not B2, the cauchy
+pool's B2 and not B1, the replicated pool's neither; rados bench and RBD
+B1 and not B2, CephFS B2 and not B1, RGW, the sidecar's ISA driver and
+the client scrub neither, the sidecar's cauchy requests B2 and not B1;
+every launch staged.  Before the
 last lines, one ``phase clock`` line a phase gives its seconds.  The last
 lines are the card's name and power limit, one JSON object describing each
 kernel (B1's and B2's launches summed over every main path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -220,6 +260,7 @@ prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import pickle
 import statistics
@@ -1225,9 +1266,15 @@ def phase_timing_b2(codec, data, card: str, yard_ms: float):
 # hosts -> 16 osds, straw2 buckets and optimal tunables, 9,984 OSDs
 RACKS, HOSTS_PER_RACK, OSDS_PER_HOST = 39, 16, 16
 PLACEMENT_PGS = 1 << 20
-LRC_PGS = CHOOSE_ARGS_PGS = CPU_CHECK_PGS = 1 << 16
+LRC_PGS = CHOOSE_ARGS_PGS = 1 << 16
+# PGs of (a) checked against the mapper on the CPU, and scalar rows a
+# sampled check takes: sized so the script stays near half its limit
+CPU_CHECK_PGS = 1 << 14
 BENCH_PGS = 1_000_000
-SAMPLE = 2000
+SAMPLE = 1000
+# timed calls a placement entry point's wall median takes (the time
+# limit again)
+PLACEMENT_REPS = 1
 LRC_RULE_PROFILE = {**LRC_PROFILE, "crush-locality": "rack",
                     "crush-failure-domain": "host"}
 
@@ -1446,6 +1493,9 @@ def check_placement(m, m2, rule, got):
 # last out device): the OSDMap repro's shape, where it fires on every PG,
 # and the same rule as an erasure pool of the 9,984-OSD map
 C1_SMALL_PGS = 16_384
+# the repro's PGs held to the scalar chain: a seeded sample (every PG of
+# the repro keeps an out OSD on the card alike)
+C1_SMALL_CHECK = 4096
 C1_PGS = 1 << 16
 C1_SIZE = 7
 # the balancer scorer round: a replicated size-3 pool on the 9,984-OSD
@@ -1476,11 +1526,12 @@ def c1_rule(cmap) -> int:
 
 
 def phase_c1(m2, big_rule):
-    """C1 on the card: (a) ROADMAP's OSDMap repro at 16,384 PGs, every PG
-    against the scalar chain; (b) the same rule as an erasure pool of the
-    9,984-OSD map with one host out (``m2``), sampled PGs against the
-    scalar chain.  Returns the PGs of (a) and (b) with an out OSD in
-    their up set."""
+    """C1 on the card: (a) ROADMAP's OSDMap repro at 16,384 PGs,
+    ``C1_SMALL_CHECK`` sampled PGs against the scalar chain; (b) the same
+    rule as an erasure pool of the 9,984-OSD map with one host out
+    (``m2``), sampled PGs against the scalar chain; both in one pool of
+    workers.  Returns the PGs of (a) and (b) with an out OSD in their up
+    set."""
     import torch
 
     from ceph_tpu_torch.osdmap.osdmap import (POOL_TYPE_ERASURE, PGPool,
@@ -1504,11 +1555,16 @@ def phase_c1(m2, big_rule):
             raise AssertionError("C1 placement did not run on the card")
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 22)
-    for label, mp, pool_id, rows, prim, seeds in (
-            ("C1 repro", small, 1, up, upp, np.arange(C1_SMALL_PGS)),
-            ("C1 pool", m2, 3, big_up, big_upp,
-             rng.choice(C1_PGS, SAMPLE, replace=False))):
-        for s, (want, p) in zip(seeds, scalar_rows(mp, pool_id, seeds)):
+    checks = (("C1 repro", 0, 1, up, upp,
+               rng.choice(C1_SMALL_PGS, C1_SMALL_CHECK, replace=False)),
+              ("C1 pool", 1, 3, big_up, big_upp,
+               rng.choice(C1_PGS, SAMPLE, replace=False)))
+    got = scalar_row_jobs({0: pickle.dumps(small), 1: pickle.dumps(m2)},
+                          [(key, pid, seeds)
+                           for _l, key, pid, _r, _p, seeds in checks])
+    for label, key, pool_id, rows, prim, seeds in checks:
+        for s in seeds:
+            want, p = got[(key, pool_id)][int(s)]
             if rows[s].tolist() != want or int(prim[s]) != p:
                 raise AssertionError(
                     f"{label} PG {s}: card {rows[s].tolist()} "
@@ -1517,7 +1573,8 @@ def phase_c1(m2, big_rule):
     out_big = np.flatnonzero(np.asarray(m2.osd_weight) == 0)
     out_big = int(np.isin(big_up, out_big).any(axis=1).sum())
     log(f"C1: repro pool ({C1_SMALL_PGS} PGs, size {C1_SIZE}, 8 OSDs, "
-        f"OSDs 1 and 5 out): every PG equals the scalar chain, "
+        f"OSDs 1 and 5 out): {C1_SMALL_CHECK} sampled PGs equal the "
+        f"scalar chain, "
         f"{out_small} PGs keep an out OSD; 9,984-OSD pool ({C1_PGS} PGs, "
         f"one host out): {SAMPLE} sampled PGs equal the scalar chain, "
         f"{out_big} PGs keep an out OSD; card {card_s:.3f} s, checks "
@@ -1877,7 +1934,8 @@ def phase_mesh_timing(isa, m, rule, ref, out, single_s: float, card: str):
         raise AssertionError("the placement timing ran with other weights")
     s = wall_median_s(
         lambda: crush_batch_sharded(mesh, m.tensor_mapper, rule, xs, 3,
-                                    weights), 2, devs)
+                                    weights), PLACEMENT_REPS, devs,
+        warm=False)
     log(f"timing: mesh crush_batch_sharded {len(xs)} PGs over "
         f"{mesh.devices.size} slots on {len(devs)} device(s): wall median "
         f"{s * 1e3:.3f} ms = {len(xs) / s:.0f} mappings/s; do_rule_batch "
@@ -2294,11 +2352,14 @@ def phase_loop_slope(codec, kernel_ms: float, card: str):
         f"with the L2 flushed {kernel_ms:.6f} ms [{card}]")
 
 
-def wall_median_s(fn, reps: int = 3, devices=(None,)) -> float:
+def wall_median_s(fn, reps: int = 3, devices=(None,),
+                  warm: bool = True) -> float:
     """Median host wall time of ``reps`` calls, each bracketed by
     ``torch.cuda.synchronize()`` of every device in ``devices`` (default:
-    the current one), after one warm-up call."""
-    fn()
+    the current one), after one warm-up call unless ``warm`` is false
+    (an entry point the script has already run on the same inputs)."""
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         sync_all(devices)
@@ -2361,7 +2422,10 @@ def phase_placement_timing(m, m2, rule, card: str):
                "one chunk": TensorMapper(m.crush, chunk=BENCH_PGS)}
     out = {}
     for label, mp in mappers.items():
-        s = wall_median_s(lambda: mp.do_rule_batch(rule, xs, 3, weights))
+        # the map's own mapper ran these PGs in the mesh phase; the
+        # one-chunk mapper is new
+        s = wall_median_s(lambda: mp.do_rule_batch(rule, xs, 3, weights),
+                          PLACEMENT_REPS, warm=label == "one chunk")
         k, k_ms, dtoh, syncs, wall, top = profile_call(
             lambda: mp.do_rule_batch(rule, xs, 3, weights))
         out[label] = s
@@ -2375,15 +2439,18 @@ def phase_placement_timing(m, m2, rule, card: str):
         for name, n, ms in top:
             log(f"timing: placement {label} kernel {name}: {n} launches, "
                 f"{ms:.3f} ms ({ms / k_ms:.4f} of kernel time) [{card}]")
-    s = wall_median_s(lambda: m.pool_mapping(1))
+    s = wall_median_s(lambda: m.pool_mapping(1), PLACEMENT_REPS,
+                      warm=False)
     log(f"timing: placement pool_mapping pool 1 ({PLACEMENT_PGS} PGs): "
         f"median {s * 1e3:.3f} ms = {PLACEMENT_PGS / s:.0f} mappings/s "
         f"[{card}]")
-    s = wall_median_s(lambda: m.rebalance_diff(1, m2))
+    s = wall_median_s(lambda: m.rebalance_diff(1, m2), PLACEMENT_REPS,
+                      warm=False)
     log(f"timing: placement rebalance_diff pool 1 (two pool_mappings of "
         f"{PLACEMENT_PGS} PGs): median {s * 1e3:.3f} ms = "
         f"{2 * PLACEMENT_PGS / s:.0f} mappings/s [{card}]")
-    rate = bench_map(n_osds=RACKS * 256, n_pgs=BENCH_PGS, iters=3)
+    rate = bench_map(n_osds=RACKS * 256, n_pgs=BENCH_PGS,
+                     iters=PLACEMENT_REPS)
     log(f"timing: placement bench_map(n_osds={RACKS * 256}, "
         f"n_pgs={BENCH_PGS}) {rate:.0f} mappings/s [{card}]")
     return out
@@ -2395,7 +2462,7 @@ CP_REP_PGS = 1 << 16
 CP_EC_PGS = 1 << 14
 CP_EC_PROFILE = {"plugin": "isa", "k": "8", "m": "4"}
 CP_WHOLESALE = 64
-CP_SAMPLE = 2000
+CP_SAMPLE = 1000
 CP_BOUND_S = 400.0
 CP_MGR_TIMEOUT_S = 10.0       # the balancer's own mon_command timeout
 
@@ -2892,7 +2959,7 @@ def check_control_plane(out, dev, card: str):
             counts.get("crush_map_pad_lanes", 0):
         raise AssertionError(f"crush counters {counts}, want {total} calls"
                              f" of {pgs} PGs and no padded lane")
-    # each mint against the per-PG scalar chain: 2,000 sampled seeds of
+    # each mint against the per-PG scalar chain: 1,000 sampled seeds of
     # every pool, every seed its delta's upmaps touched, the wholesale 64;
     # and pool_raw_up (on the card) against the same rows
     rng = np.random.default_rng(SEED + 41)
@@ -3090,7 +3157,7 @@ OC_POOLS = (
 )
 OC_VICTIM = 5
 OC_STORE_BYTES = 512 << 20      # each OSD's BlueStore device
-OC_BOUND_S = 300.0              # the whole path
+OC_BOUND_S = 420.0              # the whole path, client windows included
 OC_WAIT_S = 120.0               # each wait for a map state or clean PGs
 
 
@@ -3121,6 +3188,10 @@ def oc_config():
 
 
 OC_SETTLE_S = 30.0              # for pushes still landing after clean
+OC_QUIET_S = 1.0                # no launch and no recovery work, once clean
+# the OSDs' recovery counters each window reports beside its launches
+OC_WORK = ("osd_peering_rounds", "osd_pg_recoveries", "osd_pushes_sent",
+           "osd_read_repairs")
 
 
 def oc_clean(cluster) -> bool:
@@ -3176,6 +3247,47 @@ async def oc_settle(cluster, objects, what: str) -> float:
     return t
 
 
+def oc_work(cluster) -> dict:
+    """``OC_WORK`` summed over the running OSDs."""
+    return {n: sum(o.perf.get(n) for o in cluster.osds.values())
+            for n in OC_WORK}
+
+
+def oc_busy(cluster) -> list:
+    """The OSDs with a peering pass running or a recovery retry armed."""
+    return sorted(o.osd_id for o in cluster.osds.values()
+                  if (o._peering_task is not None
+                      and not o._peering_task.done())
+                  or o._recovery_retry_tasks)
+
+
+async def oc_quiesce(cluster, objects, gf8_mods, what: str) -> float:
+    """After ``oc_settle``: until no OSD runs a peering pass or holds an
+    armed retry, and neither the kernels' launch counts nor ``oc_work``
+    move for ``OC_QUIET_S``, the cluster clean throughout (``OC_WAIT_S``
+    at most); the seconds waited.  The cluster reads clean while the
+    primary that a pg_temp clear made peers its PG, and that round may
+    still rebuild an object: its launches belong to the window that
+    caused it, not to the next one."""
+    import asyncio
+
+    t0 = since = time.perf_counter()
+    last = None
+    while True:
+        now = time.perf_counter()
+        state = (oc_launches(gf8_mods), oc_work(cluster))
+        if not oc_clean(cluster) or oc_busy(cluster) or state != last:
+            last, since = state, now
+        elif now - since >= OC_QUIET_S:
+            return now - t0
+        if now - t0 > OC_WAIT_S:
+            raise AssertionError(
+                f"OSD cluster: {what}, but not quiet after {OC_WAIT_S} s: "
+                f"peering or retrying on {oc_busy(cluster)}, recovery work "
+                f"{oc_work(cluster)}; {oc_state(cluster, objects)}")
+        await asyncio.sleep(0.1)
+
+
 def oc_state(cluster, objects=()) -> str:
     """What keeps the cluster from clean: epochs, pg_temp entries, the
     unclean and pending PGs by OSD, and the acting members that lack an
@@ -3188,11 +3300,30 @@ def oc_state(cluster, objects=()) -> str:
     epochs = sorted({o.osdmap.epoch for o in cluster.osds.values()
                      if o.osdmap is not None})
     absent = oc_absent(cluster, objects) if objects else []
+    # each unclean PG's up and acting sets as the mon has them, and the
+    # objects every OSD holds in its collection (a stray included)
+    from ceph_tpu_torch.cluster.pg import _coll
+
+    pgs = {}
+    for o in cluster.osds.values():
+        for pgid in list(o._unclean_pgs)[:4]:
+            up, _, acting, primary = m.pg_to_up_acting_osds(pgid)
+            held = {d: sorted(x.store.list_objects(_coll(pgid)))
+                    for d, x in cluster.osds.items()
+                    if _coll(pgid) in x.store.list_collections()}
+            pgs[str(pgid)] = (list(up), list(acting), primary, held)
+    minted = cluster.mon.perf.get("mon_pg_temp_minted")
+    # what made the epochs: OSDs marked down and booted again, clears
+    mon = {n: sum(x.perf.get(f"mon_{n}") for x in cluster.mons)
+           for n in ("osd_marked_down", "osd_boot", "pg_temp_requests")}
+    out = [o for o in range(m.max_osd) if m.osd_weight[o] == 0]
     return (f"mon epoch {m.epoch}, OSD epochs {epochs}, pg_temp "
-            f"{dict(list(m.pg_temp.items())[:4])} ({len(m.pg_temp)}), "
-            f"unclean {unclean}, pending {pending}, up "
-            f"{sum(m.osd_up)}/{m.max_osd}, absent {absent[:6]} "
-            f"({len(absent)})")
+            f"{dict(list(m.pg_temp.items())[:4])} ({len(m.pg_temp)}, "
+            f"{minted} minted), mon {mon}, out {out}, unclean {unclean}, "
+            f"pending {pending}, up "
+            f"{sum(m.osd_up)}/{m.max_osd}, absent {absent[:24]} "
+            f"({len(absent)}); unclean PGs (up, acting, primary, objects "
+            f"by OSD): {pgs}")
 
 
 async def oc_wait(pred, what: str, describe=None) -> float:
@@ -3272,8 +3403,9 @@ def oc_filled_slots(cluster, pool_id, oids) -> int:
 def oc_check_shards(cluster, pool_id, expected, label: str) -> int:
     """Every shard every store holds for the pool's objects equals the
     plain codec's, in the layout the store holds it in (planes or
-    bytes), and there are at least as many as the slots CRUSH fills.
-    The shards compared."""
+    bytes), and there are at least as many as the slots CRUSH fills;
+    ``expected`` holds ``oc_digests`` of the plain codec's shards.  The
+    shards compared."""
     from ceph_tpu_torch.ec import planar_store
 
     seen = 0
@@ -3291,7 +3423,7 @@ def oc_check_shards(cluster, pool_id, expected, label: str) -> int:
                     got, want = st.read_planar(coll, oid), want_planes
                 else:
                     got = st.read(coll, oid)
-                if got != want:
+                if hashlib.sha256(got).digest() != want:
                     raise AssertionError(
                         f"OSD cluster ({label}): osd.{o} {coll}/{oid} shard "
                         f"{s} differs from the plain codec's")
@@ -3309,27 +3441,615 @@ def oc_launches(gf8_mods):
     return tuple((m.launches, m.kept_launches) for m in gf8_mods)
 
 
+# -- phase 9's client windows: rados bench, RBD, CephFS, RGW, the sidecar ---
+
+CW_BENCH_S = 3.0                # rados bench seconds per mode (write, seq)
+CW_BLOCK = 4 << 20              # rados bench's default block
+CW_RBD_SIZE = 64 << 20          # RBD's default layout: 4 MiB objects,
+CW_RBD_OBJECT = 4 << 20         # stripe_unit = object size, stripe_count 1
+CW_RBD_DEPTH = 8                # 4 MiB writes in flight
+CW_RBD_SMALL = 64               # fio randwrite 4k: 64 distinct blocks
+CW_RBD_SMALL_DEPTH = 8          # in flight (32 timed ops out at 120 s)
+CW_FS_FILES = 8                 # CephFS files of 4 MiB on the cauchy pool
+CW_FS_FILE = 4 << 20
+CW_FS_DEPTH = 4                 # files in flight (16 objects of 1 MiB)
+CW_FS_LAYOUT = (1 << 16, 1, 1 << 20)    # fs.py's default file layout
+CW_RGW_OBJECTS = 8              # signed S3 PUT/GET of 4 MiB objects
+CW_RGW_OBJECT = 4 << 20
+CW_RGW_PART = 5 << 20           # S3's smallest multipart part
+CW_RGW_PARTS = 3
+CW_RGW_ACCOUNT = ("AKSMOKE", "smoke-secret")
+CW_SIDECAR_REQUESTS = 64        # concurrent cauchy encodes
+CW_SIDECAR_CHUNK = 16 << 10     # w * packetsize bytes a chunk
+CW_SIDECAR_ERASURES = (1, 10)
+CW_SIDECAR_SRC = ("native", "ec_sidecar")
+CW_SIDECAR_BUILD = ("ceph_tpu_torch", "_build", "ec_sidecar")
+# each window and whether it must launch B1, B2: the ISA pool's I/O runs
+# B1, the cauchy pool's B2; RGW's replicated pool and the sidecar's ISA
+# profile (the byte-layout matmul) neither
+CW_WINDOWS = (("rados bench", True, False), ("rbd", True, False),
+              ("cephfs", False, True), ("rgw", False, False),
+              ("sidecar isa", False, False), ("sidecar cauchy", False, True),
+              ("client scrub", False, False))
+
+
+def cw_sidecar_build():
+    """Start the two ``g++`` builds of the EC plugin shim and its driver
+    from ``native/ec_sidecar/`` into ``ceph_tpu_torch/_build/ec_sidecar/``,
+    side by side; (shim, driver, processes)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(root, *CW_SIDECAR_SRC)
+    out = os.path.join(root, *CW_SIDECAR_BUILD)
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, "libec_jax.so")
+    drv = os.path.join(out, "ec_jax_driver")
+    procs = [subprocess.Popen(
+        ["g++", "-O2", "-fPIC", "-shared", "-o", so,
+         os.path.join(src, "libec_jax.cc")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
+        subprocess.Popen(
+        ["g++", "-O2", "-o", drv, os.path.join(src, "driver.cc"), "-ldl"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)]
+    return so, drv, procs
+
+
+def cw_inputs():
+    """Everything the client windows write, from the seed: the RBD image,
+    its 4 KiB overwrites and the host model of the image after them, the
+    CephFS files, the RGW objects and parts, the bench block and the
+    sidecar's cauchy requests."""
+    rng = np.random.default_rng(SEED + 1100)
+    inputs = {}
+    image = rng.integers(0, 256, CW_RBD_SIZE, dtype=np.uint8)
+    blocks = np.sort(rng.choice(CW_RBD_SIZE >> 12, CW_RBD_SMALL,
+                                replace=False))
+    patches = rng.integers(0, 256, (CW_RBD_SMALL, 4096), dtype=np.uint8)
+    inputs["rbd_base"] = image.tobytes()
+    inputs["rbd_small"] = [(int(b) << 12, patches[i].tobytes())
+                           for i, b in enumerate(blocks)]
+    for b, p in zip(blocks, patches):
+        image[b << 12:(b + 1) << 12] = p
+    inputs["rbd_model"] = image.tobytes()
+    inputs["bench_blob"] = b"\xa5" * CW_BLOCK     # rados bench's block
+    inputs["fs_files"] = [
+        rng.integers(0, 256, CW_FS_FILE, dtype=np.uint8).tobytes()
+        for _ in range(CW_FS_FILES)]
+    inputs["rgw_objects"] = {
+        f"obj{i}": rng.integers(0, 256, CW_RGW_OBJECT,
+                                dtype=np.uint8).tobytes()
+        for i in range(CW_RGW_OBJECTS)}
+    inputs["rgw_parts"] = [rng.integers(0, 256, CW_RGW_PART,
+                                        dtype=np.uint8).tobytes()
+                           for _ in range(CW_RGW_PARTS)]
+    k = int(CAUCHY_PROFILE["k"])
+    inputs["sidecar_reqs"] = rng.integers(
+        0, 256, (CW_SIDECAR_REQUESTS, k, CW_SIDECAR_CHUNK), dtype=np.uint8)
+    return inputs
+
+
+def oc_data():
+    """The OSD cluster's objects of each pool, from the seed."""
+    rng = np.random.default_rng(SEED + 1000)
+    return {name: {f"{name}_{i}": rng.integers(
+        0, 256, OC_OBJECT, dtype=np.uint8).tobytes() for i in range(n_obj)}
+        for name, _t, _pg, _p, n_obj, _k in OC_POOLS}
+
+
+# the module constants a worker process takes from its parent (a
+# rehearsal on the CPU sets smaller ones)
+OC_WORKER_CONSTS = ("SEED", "OC_POOLS", "OC_OBJECT", "CAUCHY_PROFILE",
+                    "CW_BLOCK", "CW_RBD_SIZE", "CW_RBD_OBJECT",
+                    "CW_RBD_SMALL", "CW_FS_FILES", "CW_FS_FILE",
+                    "CW_FS_LAYOUT", "CW_RGW_OBJECTS", "CW_RGW_OBJECT",
+                    "CW_RGW_PART", "CW_RGW_PARTS", "CW_SIDECAR_REQUESTS",
+                    "CW_SIDECAR_CHUNK", "CW_SIDECAR_ERASURES")
+
+
+def oc_digests(shards):
+    """[(bytes, planes or None)] -> the same with sha256 digests."""
+    return [(hashlib.sha256(b).digest(),
+             None if p is None else hashlib.sha256(p).digest())
+            for b, p in shards]
+
+
+def oc_expected_worker(stripe_unit: int, consts):
+    """In a spawned process, while the cluster boots and runs: the plain
+    CPU codec's shards (``oc_expected``) of the phase's objects and of
+    the client windows' RBD and CephFS objects, as digests, and the
+    sidecar's expected parity and rebuilt chunks.  The CephFS objects are
+    keyed by file and object number (the inode numbers come from the
+    MDS)."""
+    import torch
+
+    from ceph_tpu_torch.cluster.striper import FileLayout, StripedReader
+    from ceph_tpu_torch.cluster.striper import file_to_extents
+    from ceph_tpu_torch.ec import factory
+
+    globals().update(consts)
+    torch.set_num_threads(3)       # the cluster's host threads run beside
+    data, inputs = oc_data(), cw_inputs()
+    out = {"oc": {}}
+    for name, _t, _pg, prof, _n, _k in OC_POOLS:
+        if prof:
+            _unit, shards = oc_expected(prof, stripe_unit, data[name])
+            out["oc"][name] = {o: oc_digests(v) for o, v in shards.items()}
+    model = inputs["rbd_model"]
+    _unit, shards = oc_expected(dict(OC_POOLS[0][3]), stripe_unit, {
+        "rbd_data.img.%016x" % i: model[i * CW_RBD_OBJECT:
+                                        (i + 1) * CW_RBD_OBJECT]
+        for i in range(CW_RBD_SIZE // CW_RBD_OBJECT)})
+    out["rbd"] = {o: oc_digests(v) for o, v in shards.items()}
+    su, sc, osz = CW_FS_LAYOUT
+    layout = FileLayout(stripe_unit=su, stripe_count=sc, object_size=osz)
+    objs = {}
+    for i, blob in enumerate(inputs["fs_files"]):
+        ex = file_to_extents("%d", layout, 0, len(blob))
+        for oid, parts in StripedReader.scatter(ex, blob).items():
+            buf = bytearray()
+            for off, part in parts:
+                buf[off:off + len(part)] = part
+            objs[f"{i}/{oid}"] = bytes(buf)
+    _unit, shards = oc_expected(dict(CAUCHY_PROFILE), stripe_unit, objs)
+    out["fs"] = {o: oc_digests(v) for o, v in shards.items()}
+    reqs = inputs["sidecar_reqs"]
+    cpu = factory(dict(CAUCHY_PROFILE), device="cpu")
+    parity = cpu.encode_batch(reqs).numpy()
+    full = np.concatenate([reqs[:1], parity[:1]], axis=1).copy()
+    want = full[0, list(CW_SIDECAR_ERASURES)].copy()
+    full[0, list(CW_SIDECAR_ERASURES)] = 0
+    rebuilt = cpu.decode_batch(CW_SIDECAR_ERASURES, full).numpy()[0]
+    if not np.array_equal(rebuilt, want):
+        raise AssertionError("sidecar: the plain codec's decode does not "
+                             "rebuild the erased chunks")
+    out["sidecar"] = (parity, full[0], rebuilt)
+    return out
+
+
+class TimedIo:
+    """An IoCtx that times every ``write_full`` and ``read`` and compares
+    every read with the block written: ``rados bench`` reports p50, p95
+    and the maximum, and reads its block back unchecked."""
+
+    def __init__(self, io, want: bytes):
+        self._io, self._want = io, want
+        self.lat = {"write": [], "read": []}
+
+    def __getattr__(self, name):
+        return getattr(self._io, name)
+
+    async def write_full(self, oid, data, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = await self._io.write_full(oid, data, *args, **kwargs)
+        self.lat["write"].append(time.perf_counter() - t0)
+        return out
+
+    async def read(self, oid, *args, **kwargs):
+        t0 = time.perf_counter()
+        got = await self._io.read(oid, *args, **kwargs)
+        self.lat["read"].append(time.perf_counter() - t0)
+        if got != self._want:
+            raise AssertionError(f"rados bench: read of {oid} differs "
+                                 "from the block written")
+        return got
+
+
+async def cw_ops(jobs, depth: int):
+    """Run the coroutine factories ``jobs`` with ``depth`` in flight;
+    (wall seconds, per-op latencies, results)."""
+    import asyncio
+
+    sem = asyncio.Semaphore(depth)
+    lat = []
+
+    async def one(job):
+        async with sem:
+            t0 = time.perf_counter()
+            res = await job()
+            lat.append(time.perf_counter() - t0)
+            return res
+
+    t0 = time.perf_counter()
+    res = await asyncio.gather(*(one(j) for j in jobs))
+    return time.perf_counter() - t0, lat, res
+
+
+async def cw_http(addr, method, path, body=b"", headers=None):
+    """One HTTP/1.1 request on a fresh loopback connection: (status,
+    headers, body)."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection(*addr)
+    headers = dict(headers or {})
+    headers["Content-Length"] = str(len(body))
+    headers["Host"] = "s3.local"
+    writer.write((f"{method} {path} HTTP/1.1\r\n" + "".join(
+        f"{k}: {v}\r\n" for k, v in headers.items()) + "\r\n").encode()
+        + body)
+    await writer.drain()
+    status = int((await reader.readline()).decode().split(" ", 2)[1])
+    rh = {}
+    while True:
+        line = (await reader.readline()).decode().strip()
+        if not line:
+            break
+        k, v = line.split(":", 1)
+        rh[k.strip().lower()] = v.strip()
+    n = 0 if method == "HEAD" else int(rh.get("content-length", "0"))
+    data = await reader.readexactly(n)
+    writer.close()
+    return status, rh, data
+
+
+def cw_signed(method, path, body=b"", query=None):
+    """S3 v2-lite signature headers of ``RGWFrontend.sign``."""
+    from ceph_tpu_torch.cluster.rgw_http import RGWFrontend
+
+    date = str(time.time())
+    access, secret = CW_RGW_ACCOUNT
+    return {"Authorization": RGWFrontend.sign(
+        method, path, date, access, secret, body=body, query=query),
+        "x-amz-date": date}
+
+
+def cw_sidecar_request(op, profile, k, m, chunk, data, erasures=()):
+    """One request of the sidecar's documented protocol, length-prefixed."""
+    import struct
+
+    prof = json.dumps(profile)
+    body = (bytes([op]) + struct.pack("<H", len(prof)) + prof.encode()
+            + bytes([k, m, len(erasures)]) + bytes(erasures)
+            + struct.pack("<I", chunk) + data.tobytes())
+    return struct.pack("<I", len(body)) + body
+
+
+async def cw_sidecar_send(sock, frame):
+    import asyncio
+    import struct
+
+    reader, writer = await asyncio.open_unix_connection(sock)
+    writer.write(frame)
+    await writer.drain()
+    (n,) = struct.unpack("<I", await reader.readexactly(4))
+    reply = await reader.readexactly(n)
+    writer.close()
+    return reply
+
+
+async def client_windows(cluster, client, pools, dev, inputs, shards, out,
+                         watch, window, reset_counts, store_dir, build):
+    """Phase 9's client windows on the running cluster, each counted from
+    0 just before and read just after: rados bench on the ISA pool, an
+    RBD image on the ISA pool, CephFS with its data on the cauchy pool
+    and its metadata on the replicated one, RGW's S3 frontend on the
+    replicated pool, and the EC sidecar with the native shim's driver
+    and 64 concurrent cauchy requests; then a deep scrub of the EC PGs
+    the windows wrote.  ``inputs`` are ``cw_inputs()``, ``shards`` what
+    ``oc_expected_worker`` returned."""
+    import asyncio
+    import os
+
+    from ceph_tpu_torch.cluster.mds import MDSClient
+    from ceph_tpu_torch.cluster.rbd import RBD
+    from ceph_tpu_torch.cluster.rgw import RGW
+    from ceph_tpu_torch.cluster.rgw_http import RGWFrontend
+    from ceph_tpu_torch.tools import rados
+    from ceph_tpu_torch.tools.ec_sidecar import Sidecar
+
+    res = out["clients"] = {}
+    wrote = {pools["isa"]: set(), pools["cauchy"]: set()}
+
+    # rados bench at Ceph's defaults on the ISA pool: write, then seq
+    watch.step = "rados bench"
+    reset_counts()
+    isa_io = client.ioctx(pools["isa"])
+    timed = TimedIo(isa_io, inputs["bench_blob"])
+    w = await rados.bench(timed, CW_BENCH_S, "write",
+                          concurrency=OC_INFLIGHT, block_size=CW_BLOCK,
+                          cleanup=False)
+    s = await rados.bench(timed, CW_BENCH_S, "seq",
+                          concurrency=OC_INFLIGHT, block_size=CW_BLOCK)
+    window("rados bench")
+    if len(timed.lat["read"]) != s["ops"] or \
+            len(timed.lat["write"]) != w["ops"] or not s["ops"]:
+        raise AssertionError("rados bench: the seq reads were not all "
+                             "checked, or a mode ran no op")
+    bench_oids = [o for o in await isa_io.list_objects()
+                  if o.startswith("bench_")]
+    if len(bench_oids) != w["ops"]:
+        raise AssertionError(f"rados bench: {len(bench_oids)} objects for "
+                             f"{w['ops']} writes")
+    wrote[pools["isa"]].update(bench_oids)
+    res["bench"] = (w, s, timed.lat)
+
+    # RBD on the ISA pool: sequential 4 MiB writes, random 4 KiB
+    # overwrites, a full read, a snapshot and its read
+    watch.step = "rbd"
+    reset_counts()
+    rbd = RBD(client.ioctx(pools["isa"]))
+    await rbd.create("img", CW_RBD_SIZE, stripe_unit=CW_RBD_OBJECT,
+                     stripe_count=1, object_size=CW_RBD_OBJECT)
+    img = await rbd.open("img")
+    base = inputs["rbd_base"]
+    seq_w = await cw_ops(
+        [lambda o=o: img.write(o, base[o:o + CW_RBD_OBJECT])
+         for o in range(0, CW_RBD_SIZE, CW_RBD_OBJECT)], CW_RBD_DEPTH)
+    small_w = await cw_ops([lambda o=o, p=p: img.write(o, p)
+                            for o, p in inputs["rbd_small"]],
+                           CW_RBD_SMALL_DEPTH)
+    t0 = time.perf_counter()
+    got = await img.read(0, CW_RBD_SIZE)
+    read_s = time.perf_counter() - t0
+    if got != inputs["rbd_model"]:
+        raise AssertionError("RBD: the image read differs from the host "
+                             "model")
+    await img.snap_create("s1")
+    t0 = time.perf_counter()
+    got = await img.read(0, CW_RBD_SIZE, snap_name="s1")
+    snap_s = time.perf_counter() - t0
+    if got != inputs["rbd_model"]:
+        raise AssertionError("RBD: the snapshot read differs from the host "
+                             "model")
+    window("rbd")
+    wrote[pools["isa"]].update(shards["rbd"])
+    wrote[pools["isa"]].add("rbd_header.img")
+    res["rbd"] = (seq_w[:2], small_w[:2], read_s, snap_s)
+
+    # CephFS: an MDS rank on the cluster's device, metadata on the
+    # replicated pool, data on the cauchy pool
+    watch.step = "cephfs"
+    reset_counts()
+    t0 = time.perf_counter()
+    mds = await cluster.start_mds(pools["rep"], pools["cauchy"])
+    if mds.device != dev or mds._client.objecter.device != dev:
+        raise AssertionError("CephFS: the MDS is off the card")
+    t1 = time.perf_counter()
+    while not (getattr(client.objecter.osdmap, "mds_addrs", None)
+               or {}).get(0):
+        if time.perf_counter() - t1 > OC_WAIT_S:
+            raise AssertionError("CephFS: the MDS never reached the map")
+        await client.objecter._refresh_map()
+        await asyncio.sleep(0.05)
+    mds_s = time.perf_counter() - t0
+    fs = MDSClient(client, pools["cauchy"], meta_pool=pools["rep"])
+    await fs.mkdir("/d")
+    paths = [f"/d/f{i}" for i in range(CW_FS_FILES)]
+    create = await cw_ops([lambda p=p: fs.create(p) for p in paths], 1)
+    files = inputs["fs_files"]
+    fs_w = await cw_ops([lambda p=p, d=d: fs.write(p, 0, d)
+                         for p, d in zip(paths, files)], CW_FS_DEPTH)
+    fs_r = await cw_ops([lambda p=p: fs.read(p) for p in paths],
+                        CW_FS_DEPTH)
+    if fs_r[2] != files:
+        raise AssertionError("CephFS: a file read differs from what was "
+                             "written")
+    names = await fs.listdir("/d")
+    stats = [await fs.stat(p) for p in paths]
+    window("cephfs")
+    if names != sorted(p.rsplit("/", 1)[1] for p in paths) or any(
+            st.size != CW_FS_FILE or st.mode != "file" for st in stats):
+        raise AssertionError(f"CephFS: listdir {names} or a stat is wrong")
+    if any(st.layout is not None and (st.layout.stripe_unit,
+                                      st.layout.stripe_count,
+                                      st.layout.object_size)
+           != CW_FS_LAYOUT for st in stats):
+        raise AssertionError("CephFS: a file's layout is not the one its "
+                             "shards were computed for")
+    fs_expected = {}
+    for key, want in shards["fs"].items():
+        i, objno = key.split("/")
+        fs_expected[f"{stats[int(i)].ino:x}.{int(objno):016x}"] = want
+    wrote[pools["cauchy"]].update(fs_expected)
+    res["cephfs"] = (mds_s, create[1], fs_w[:2], fs_r[:2])
+
+    # RGW on the replicated pool, through the S3 frontend on loopback
+    watch.step = "rgw"
+    reset_counts()
+    fe = RGWFrontend(RGW(client.ioctx(pools["rep"])),
+                     accounts=dict([CW_RGW_ACCOUNT]))
+    addr = await fe.start()
+    try:
+        st, _, _ = await cw_http(addr, "PUT", "/smoke",
+                                 headers=cw_signed("PUT", "/smoke"))
+        if st != 200:
+            raise AssertionError(f"RGW: bucket create answered {st}")
+        objs = inputs["rgw_objects"]
+
+        async def put(key, data):
+            path = f"/smoke/{key}"
+            st, h, _ = await cw_http(addr, "PUT", path, data,
+                                     cw_signed("PUT", path, data))
+            return st, h.get("etag")
+
+        async def get(key):
+            path = f"/smoke/{key}"
+            st, h, body = await cw_http(addr, "GET", path,
+                                        headers=cw_signed("GET", path))
+            return st, h.get("etag"), body
+
+        puts = await cw_ops([lambda k=k, d=d: put(k, d)
+                             for k, d in objs.items()], CW_RGW_OBJECTS)
+        gets = await cw_ops([lambda k=k: get(k) for k in objs],
+                            CW_RGW_OBJECTS)
+        for (key, data), (pst, petag), (gst, getag, body) in zip(
+                objs.items(), puts[2], gets[2]):
+            etag = f'"{hashlib.md5(data).hexdigest()}"'
+            if (pst, gst) != (200, 200) or petag != etag or \
+                    getag != etag or body != data:
+                raise AssertionError(f"RGW: {key} answered {pst}/{gst}, "
+                                     "or its ETag or bytes differ")
+        # one multipart upload of three 5 MiB parts
+        t0 = time.perf_counter()
+        path = "/smoke/multi"
+        st, _, body = await cw_http(
+            addr, "POST", path + "?uploads",
+            headers=cw_signed("POST", path, query={"uploads": ""}))
+        upload = body.decode().split("<UploadId>")[1].split("<")[0]
+        part_etags = []
+        for n, part in enumerate(inputs["rgw_parts"], 1):
+            q = {"partNumber": str(n), "uploadId": upload}
+            st, h, _ = await cw_http(
+                addr, "PUT", f"{path}?partNumber={n}&uploadId={upload}",
+                part, cw_signed("PUT", path, part, query=q))
+            if st != 200 or h.get("etag") != \
+                    f'"{hashlib.md5(part).hexdigest()}"':
+                raise AssertionError(f"RGW: part {n} answered {st}")
+            part_etags.append(h["etag"].strip('"'))
+        st, _, body = await cw_http(
+            addr, "POST", f"{path}?uploadId={upload}",
+            headers=cw_signed("POST", path, query={"uploadId": upload}))
+        want = (hashlib.md5("".join(part_etags).encode()).hexdigest()
+                + f"-{CW_RGW_PARTS}")
+        if st != 200 or f"&quot;{want}&quot;".encode() not in body:
+            raise AssertionError(f"RGW: multipart complete answered {st}")
+        st, h, body = await cw_http(addr, "GET", path,
+                                    headers=cw_signed("GET", path))
+        if st != 200 or h.get("etag") != f'"{want}"' or \
+                body != b"".join(inputs["rgw_parts"]):
+            raise AssertionError("RGW: the multipart object's ETag or "
+                                 "bytes differ")
+        multi_s = time.perf_counter() - t0
+    finally:
+        await fe.stop()
+    window("rgw")
+    res["rgw"] = (puts[:2], gets[:2], multi_s)
+
+    # the EC sidecar: the native shim's driver (ISA), then concurrent
+    # cauchy requests over the documented protocol
+    watch.step = "sidecar"
+    sock = f"{store_dir}/ec.sock"
+    sidecar = Sidecar(device=dev)
+    server = await asyncio.start_unix_server(sidecar.handle, path=sock)
+    try:
+        so, drv, procs = build
+        t0 = time.perf_counter()
+        for p in procs:
+            text = p.communicate(timeout=120)[0].decode()
+            if p.returncode:
+                raise AssertionError(f"sidecar: g++ failed: {text}")
+        build_s = time.perf_counter() - t0
+        reset_counts()
+        proc = await asyncio.create_subprocess_exec(
+            drv, so, env=dict(os.environ, EC_JAX_SIDECAR=sock),
+            stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+        drv_out, drv_err = await asyncio.wait_for(proc.communicate(), 120)
+        window("sidecar isa")
+        if proc.returncode or b'"native_seam": "ok"' not in drv_out:
+            raise AssertionError(f"sidecar: the driver failed: {drv_out!r} "
+                                 f"{drv_err!r}")
+        driver = json.loads(drv_out.decode().strip().splitlines()[-1])
+        isa_counts = (sidecar.requests, sidecar.batches)
+        reqs = inputs["sidecar_reqs"]
+        parity, full, rebuilt = shards["sidecar"]
+        k, m = int(CAUCHY_PROFILE["k"]), int(CAUCHY_PROFILE["m"])
+        reset_counts()
+        t0 = time.perf_counter()
+        replies = await asyncio.gather(*(
+            cw_sidecar_send(sock, cw_sidecar_request(
+                1, CAUCHY_PROFILE, k, m, CW_SIDECAR_CHUNK, r))
+            for r in reqs))
+        enc_s = time.perf_counter() - t0
+        dec = await cw_sidecar_send(sock, cw_sidecar_request(
+            2, CAUCHY_PROFILE, k, m, CW_SIDECAR_CHUNK, full,
+            CW_SIDECAR_ERASURES))
+        window("sidecar cauchy")
+        requests = sidecar.requests - isa_counts[0]
+        batches = sidecar.batches - isa_counts[1]
+        for i, reply in enumerate(replies):
+            if reply[0] != 0 or reply[1:] != parity[i].tobytes():
+                raise AssertionError(f"sidecar: cauchy request {i}'s parity "
+                                     "differs from the plain CPU codec's")
+        if dec[0] != 0 or dec[1:] != rebuilt.tobytes():
+            raise AssertionError("sidecar: the rebuilt chunks differ from "
+                                 "the plain CPU codec's")
+        if not batches < requests:
+            raise AssertionError(f"sidecar: {batches} batches for "
+                                 f"{requests} requests: no coalescing")
+    finally:
+        server.close()
+        await server.wait_closed()
+    res["sidecar"] = (build_s, driver, isa_counts, (requests, batches),
+                      enc_s)
+
+    # the EC PGs the windows wrote, deep-scrubbed by their primaries
+    watch.step = "client scrub"
+    reset_counts()
+    t0 = time.perf_counter()
+    by_osd = {}
+    for pool_id, oids in wrote.items():
+        for oid in oids:
+            pgid = client.objecter.object_pgid(pool_id, oid)
+            primary = cluster.mon.osdmap.pg_to_up_acting_osds(pgid)[3]
+            by_osd.setdefault(primary, set()).add(pgid)
+
+    async def scrub(o, pgids):
+        osd = cluster.osds[o]
+        return [await osd.scrub_pg(osd.pgs[p]) for p in sorted(pgids)]
+
+    reports = [r for rs in await asyncio.gather(*(
+        scrub(o, p) for o, p in by_osd.items())) for r in rs]
+    window("client scrub")
+    bad = [oid for r in reports for oid in r["inconsistent"]]
+    if bad:
+        raise AssertionError(f"client windows: deep scrub found "
+                             f"{len(bad)} inconsistent objects")
+    res["scrub"] = (len(reports), len(bad), time.perf_counter() - t0)
+
+    # every EC shard of the windows' objects equals the plain CPU codec's
+    watch.step = "check"
+    res["shards"] = {
+        "rbd": oc_check_shards(cluster, pools["isa"], shards["rbd"],
+                               "rbd"),
+        "cephfs": oc_check_shards(cluster, pools["cauchy"], fs_expected,
+                                  "cephfs")}
+
+
 async def osd_cluster(dev, card: str, reset_counts, gf8_mods, store_dir):
     """The path itself: see ``phase_osd_cluster``."""
+    import concurrent.futures
+    import multiprocessing
+
+    out = {"windows": {}, "work": {}, "t": {}, "io": {}}
+    t0 = time.perf_counter()
+    data, inputs = oc_data(), cw_inputs()
+    out["t"]["inputs"] = time.perf_counter() - t0
+    cfg = oc_config()
+    # the plain codec's shards are computed in a spawned process while
+    # the cluster runs (on its event loop they would read as dead
+    # daemons), and the sidecar's shim and driver build meanwhile
+    build = cw_sidecar_build()
+    workers = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        fut = workers.submit(oc_expected_worker, cfg.osd_ec_stripe_unit,
+                             {k: globals()[k] for k in OC_WORKER_CONSTS})
+        return await osd_cluster_run(dev, card, reset_counts, gf8_mods,
+                                     store_dir, out, data, inputs, cfg,
+                                     build, fut)
+    finally:
+        workers.shutdown(wait=True, cancel_futures=True)
+        for p in build[2]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+async def osd_cluster_run(dev, card, reset_counts, gf8_mods, store_dir,
+                          out, data, inputs, cfg, build, fut):
+    """``osd_cluster`` once the sidecar's builds and the expected shards'
+    worker have started."""
     import asyncio
 
     import torch
 
     from ceph_tpu_torch.cluster.bluestore import BlueStore
     from ceph_tpu_torch.cluster.vstart import start_cluster
+    from ceph_tpu_torch.ec import factory
 
-    rng = np.random.default_rng(SEED + 1000)
-    out = {"windows": {}, "t": {}, "io": {}}
-    data = {name: {f"{name}_{i}": rng.integers(
-        0, 256, OC_OBJECT, dtype=np.uint8).tobytes() for i in range(n_obj)}
-        for name, _t, _pg, _p, n_obj, _k in OC_POOLS}
-    # the plain codec's shards, before any daemon starts: minutes of host
-    # work on the cluster's event loop would read as dead daemons
-    t0 = time.perf_counter()
-    cfg = oc_config()
-    expected = {name: oc_expected(prof, cfg.osd_ec_stripe_unit, data[name])
-                for name, _t, _pg, prof, _n, _k in OC_POOLS if prof}
-    out["t"]["expected"] = time.perf_counter() - t0
+    units = {name: factory(prof, device="cpu").stripe_unit(
+        cfg.osd_ec_stripe_unit) for name, _t, _pg, prof, _n, _k in OC_POOLS
+        if prof}
     watch = LoopWatch()
     # the shard checks read every store on the loop: the phase's work
     watch.OWN = LoopWatch.OWN + ("check",)
@@ -3359,21 +4079,33 @@ async def osd_cluster(dev, card: str, reset_counts, gf8_mods, store_dir):
             pools[name] = pid
             out["t"][f"create {name}"] = time.perf_counter() - t1
             if prof and int(cluster.mon.osdmap.pools[pid].ec_profile[
-                    "stripe_unit"]) != expected[name][0]:
+                    "stripe_unit"]) != units[name]:
                 raise AssertionError(f"OSD cluster: pool {name}'s stripe "
                                      "unit is not the one checked against")
         out["t"]["pools clean"] = await oc_wait(
             lambda: oc_clean(cluster), "PGs clean after the creates",
             lambda: oc_state(cluster))
 
+        work0 = {}
+
+        def reset():
+            """The launch counts to 0 and the recovery work's mark."""
+            reset_counts()
+            work0.update(oc_work(cluster))
+
         def window(label):
             torch.cuda.synchronize(dev) if dev.type == "cuda" else None
             out["windows"][label] = oc_launches(gf8_mods)
+            work = out["work"][label] = {
+                n: v - work0.get(n, 0) for n, v in oc_work(cluster).items()}
+            log(f"OSD cluster: window {label} closed "
+                f"{time.perf_counter() - t0:.3f} s after the boot began; "
+                f"the OSDs' recovery work in it {json.dumps(work)}")
 
         for name, *_rest in OC_POOLS:
             io = client.ioctx(pools[name])
             watch.step = f"write {name}"
-            reset_counts()
+            reset()
             w_s, w_lat = await oc_ops(io, data[name], write=True)
             watch.step = f"read {name}"
             r_s, r_lat = await oc_ops(io, data[name], write=False)
@@ -3386,16 +4118,19 @@ async def osd_cluster(dev, card: str, reset_counts, gf8_mods, store_dir):
                  for o in cluster.osds.values()]
         out["ticks"] = (sum(a for a, _ in ticks), sum(b for _, b in ticks))
         watch.step = "scrub"
-        reset_counts()
+        reset()
         t1 = time.perf_counter()
-        ec_pools = {pools["isa"], pools["cauchy"]}
+        # the EC PGs that hold the phase's objects (the others are empty;
+        # scrubbing all 320 took 9-18 s)
+        ec_pgs = {client.objecter.object_pgid(pools[name], oid)
+                  for name in ("isa", "cauchy") for oid in data[name]}
 
         async def scrub_primary_pgs(o):
-            """One OSD deep-scrubs its primary PGs of the EC pools in
-            turn (``osd_max_scrubs`` 1); the OSDs scrub side by side."""
+            """One OSD deep-scrubs its primary PGs of ``ec_pgs`` in turn
+            (``osd_max_scrubs`` 1); the OSDs scrub side by side."""
             reports = []
             for pgid, st in sorted(o.pgs.items()):
-                if pgid.pool in ec_pools and st.primary == o.osd_id:
+                if pgid in ec_pgs and st.primary == o.osd_id:
                     reports.append(await o.scrub_pg(st))
             return reports
 
@@ -3405,18 +4140,21 @@ async def osd_cluster(dev, card: str, reset_counts, gf8_mods, store_dir):
         scrubbed = len(reports)
         out["t"]["scrub"] = time.perf_counter() - t1
         window("scrub")
-        if bad or scrubbed != sum(p[2] for p in OC_POOLS[:2]):
+        if bad or scrubbed != len(ec_pgs):
             raise AssertionError(f"OSD cluster: deep scrub of {scrubbed} PGs "
                                  f"found {len(bad)} inconsistent objects")
         out["scrub"] = (scrubbed, len(bad))
-        expected = {name: shards for name, (_u, shards) in expected.items()}
+        t1 = time.perf_counter()
+        shards = await asyncio.wrap_future(fut)
+        out["t"]["expected wait"] = time.perf_counter() - t1
+        expected = shards["oc"]
         watch.step = "check"
         out["shards"] = {"written": {
             name: oc_check_shards(cluster, pools[name], expected[name],
                                   "written") for name in expected}}
         # one OSD stopped: down, out, and every PG clean again
         watch.step = "recovery"
-        reset_counts()
+        reset()
         epoch0 = cluster.mon.osdmap.epoch
         t1 = time.perf_counter()
         await cluster.kill_osd(OC_VICTIM)
@@ -3427,6 +4165,8 @@ async def osd_cluster(dev, card: str, reset_counts, gf8_mods, store_dir):
             "never out")
         await oc_settle(cluster, objects, "PGs clean after the out")
         out["t"]["recovery"] = time.perf_counter() - t1
+        out["t"]["recovery quiet"] = await oc_quiesce(
+            cluster, objects, gf8_mods, "PGs clean after the out")
         out["recovery_epochs"] = cluster.mon.osdmap.epoch - epoch0
         watch.step = "reread"
         r_s, r_lat = 0.0, []
@@ -3443,7 +4183,7 @@ async def osd_cluster(dev, card: str, reset_counts, gf8_mods, store_dir):
                                   "recovered") for name in expected}
         # the OSD back on a new, empty BlueStore: backfill
         watch.step = "backfill"
-        reset_counts()
+        reset()
         t1 = time.perf_counter()
         cluster.osd_stores[OC_VICTIM] = BlueStore(
             f"{store_dir}/osd{OC_VICTIM}-new", size=OC_STORE_BYTES)
@@ -3456,6 +4196,8 @@ async def osd_cluster(dev, card: str, reset_counts, gf8_mods, store_dir):
                       "never back in")
         await oc_settle(cluster, objects, "PGs clean after backfill")
         out["t"]["backfill"] = time.perf_counter() - t1
+        out["t"]["backfill quiet"] = await oc_quiesce(
+            cluster, objects, gf8_mods, "PGs clean after backfill")
         window("backfill")
         watch.step = "check"
         out["shards"]["backfilled"] = {
@@ -3465,6 +4207,11 @@ async def osd_cluster(dev, card: str, reset_counts, gf8_mods, store_dir):
         out["victim_shards"] = sum(
             len(victim.store.list_objects(c))
             for c in victim.store.list_collections() if c.startswith("pg_"))
+        t1 = time.perf_counter()
+        await client_windows(cluster, client, pools, dev, inputs, shards,
+                             out, watch, window, reset, store_dir, build)
+        out["t"]["clients"] = time.perf_counter() - t1
+        out["loop_steps"] = dict(watch.by_step)
         watch.step = "teardown"
         out["map"] = (sum(o.map_advance_seconds
                           for o in cluster.osds.values()),
@@ -3487,18 +4234,14 @@ def oc_unshared_advance(map_blob: bytes, dev, batch_min: int):
     """One OSD's placement of one epoch without the cluster's shared
     cache: every pool of the last map snapshotted as an OSD's map advance
     does (``placement_snapshot``), on a copy as a full map arrives (its
-    mapper not built yet), then again on the same copy, as an epoch that
-    arrives as an increment finds it.  (seconds, seconds)."""
+    mapper not built yet); seconds."""
     from ceph_tpu_torch.osdmap.osdmap import placement_snapshot
 
     m = pickle.loads(map_blob).set_device(dev)
-    out = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        for pool_id in sorted(m.pools):
-            placement_snapshot(m, pool_id, batch_min)
-        out.append(time.perf_counter() - t0)
-    return tuple(out)
+    t0 = time.perf_counter()
+    for pool_id in sorted(m.pools):
+        placement_snapshot(m, pool_id, batch_min)
+    return time.perf_counter() - t0
 
 
 def oc_pct(xs, q: float) -> float:
@@ -3516,7 +4259,7 @@ def phase_osd_cluster(card: str, reset_counts, gf8_mods, dev=None):
     kernel B1), cauchy_good k8m4 (64 PGs, bytes at rest, kernel B2) and
     replicated size 3 (256 PGs); 16, 8 and 8 objects of 4 MiB (half of
     rados bench's 32, 16 and 16) written and read back with 16 ops in
-    flight, both EC pools deep-scrubbed, one
+    flight, the EC PGs holding them deep-scrubbed, one
     OSD stopped until it is down and out and every PG is clean, every
     object read again, the OSD revived on an empty BlueStore and
     backfilled.  Each pool's I/O, the scrub, the recovery and the
@@ -3542,15 +4285,24 @@ def phase_osd_cluster(card: str, reset_counts, gf8_mods, dev=None):
             f"({b2 - b2k} staged, {b2k} kept)")
         if b1k or b2k:
             raise AssertionError(f"OSD cluster ({label}): a kept launch")
+    work = lambda label: json.dumps(out["work"][label])  # noqa: E731
     if wins["isa"][0][0] <= 0 or wins["isa"][1][0]:
         raise AssertionError("OSD cluster: the ISA pool's window is not "
-                             "B1 only")
+                             f"B1 only; recovery work {work('isa')}")
     if wins["cauchy"][1][0] <= 0 or wins["cauchy"][0][0]:
         raise AssertionError("OSD cluster: the cauchy pool's window is not "
-                             "B2 only")
+                             f"B2 only; recovery work {work('cauchy')}")
     if wins["rep"][0][0] or wins["rep"][1][0]:
         raise AssertionError("OSD cluster: the replicated pool launched an "
-                             "EC kernel")
+                             f"EC kernel; recovery work {work('rep')}")
+    for label, b1_want, b2_want in CW_WINDOWS:
+        (b1, _), (b2, _) = wins[label]
+        if (b1 > 0) != b1_want or (b2 > 0) != b2_want:
+            raise AssertionError(
+                f"client window {label}: B1 {b1}, B2 {b2} launches; "
+                f"expected B1 {'some' if b1_want else 'none'}, B2 "
+                f"{'some' if b2_want else 'none'}; the OSDs' recovery work "
+                f"in it {work(label)}")
     ms = lambda s: f"{s * 1e3:.3f} ms"  # noqa: E731
     t = out["t"]
     for name, _pt, pg_num, _p, n_obj, kernel in OC_POOLS:
@@ -3575,31 +4327,92 @@ def phase_osd_cluster(card: str, reset_counts, gf8_mods, dev=None):
     log(f"OSD cluster [{card}]: osd.{OC_VICTIM} stopped: down after "
         f"{t['marked down']:.3f} s, out after {t['marked out']:.3f} s, every "
         f"PG clean {t['recovery']:.3f} s after the stop "
-        f"({out['recovery_epochs']} epochs); reread of all {total:.3f} MB "
+        f"({out['recovery_epochs']} epochs), quiet {t['recovery quiet']:.3f} "
+        f"s later; reread of all {total:.3f} MB "
         f"{total / r_s:.3f} MB/s, p50 {ms(oc_pct(r_lat, 0.5))} p99 "
         f"{ms(oc_pct(r_lat, 0.99))}; revived on an empty BlueStore, clean "
         f"after backfill in {t['backfill']:.3f} s ({out['victim_shards']} "
-        f"objects back on it)")
+        f"objects back on it), quiet {t['backfill quiet']:.3f} s later")
     log(f"OSD cluster [{card}]: shards equal to the plain CPU codec's: "
         f"{json.dumps(out['shards'], sort_keys=True)}; every acting member "
         "holds every object after the recovery and the backfill")
-    full_s, inc_s = out["unshared"]
+    full_s = out["unshared"]
     log(f"OSD cluster [{card}]: map advances {advances} over {OC_OSDS} "
         f"OSDs and {epochs} epochs, {adv_s:.3f} s in all, "
         f"{adv_s / max(epochs, 1):.3f} s per epoch summed over the OSDs "
         f"sharing one placement cache; one OSD unshared, every pool of "
-        f"one epoch: {full_s:.3f} s on a full map, {inc_s:.3f} s on an "
-        f"increment; "
+        f"one epoch: {full_s:.3f} s on a full map; "
         f"the client's scalar targeting {tgts} walks, {ms(tgt_s)}; "
         f"longest loop block {ms(lag)} (in {where}); boot "
         f"{t['boot']:.3f} s, pool creates "
         + ", ".join(f"{ms(t[f'create {p[0]}'])}" for p in OC_POOLS)
-        + f", clean {t['pools clean']:.3f} s; the plain codec's shards "
-        f"{t['expected']:.3f} s (before the boot); the path "
+        + f", clean {t['pools clean']:.3f} s; the inputs from the seed "
+        f"{t['inputs']:.3f} s (before the boot), the wait for the plain "
+        f"codec's shards (a spawned process since before the boot) "
+        f"{t['expected wait']:.3f} s; the path "
         f"{t['path']:.3f} s, the phase {time.perf_counter() - t0:.3f} s")
+    cw_log(out, card)
     b1 = sum(w[0][0] for w in wins.values())
     b2 = sum(w[1][0] for w in wins.values())
     return b1, b2
+
+
+def cw_log(out, card: str) -> None:
+    """The client windows' lines: rates, latencies, the sidecar's
+    coalescing, the scrub, the shard checks and the loop's blocks."""
+    ms = lambda s: f"{s * 1e3:.3f} ms"  # noqa: E731
+    res = out["clients"]
+    w, s, lat = res["bench"]
+    log(f"client windows [{card}]: rados bench (ISA pool, {CW_BLOCK >> 10} "
+        f"KiB, {OC_INFLIGHT} in flight, {CW_BENCH_S} s a mode): write "
+        f"{w['ops']} ops {w['mbps']:.3f} MB/s, p50 "
+        f"{ms(oc_pct(lat['write'], 0.5))} p99 "
+        f"{ms(oc_pct(lat['write'], 0.99))}; seq {s['ops']} ops "
+        f"{s['mbps']:.3f} MB/s, p50 {ms(oc_pct(lat['read'], 0.5))} p99 "
+        f"{ms(oc_pct(lat['read'], 0.99))}")
+    (seq_s, _), (small_s, small_lat), read_s, snap_s = res["rbd"]
+    mb = CW_RBD_SIZE / 1e6
+    log(f"client windows [{card}]: RBD (ISA pool, {CW_RBD_SIZE >> 20} MiB "
+        f"image, {CW_RBD_OBJECT >> 20} MiB objects): write {mb / seq_s:.3f} "
+        f"MB/s ({CW_RBD_SIZE // CW_RBD_OBJECT} x {CW_RBD_OBJECT >> 20} MiB, "
+        f"{CW_RBD_DEPTH} in flight); {CW_RBD_SMALL} random 4 KiB "
+        f"overwrites ({CW_RBD_SMALL_DEPTH} in flight) {small_s:.3f} s, p50 {ms(oc_pct(small_lat, 0.5))} p99 "
+        f"{ms(oc_pct(small_lat, 0.99))}; read {mb / read_s:.3f} MB/s; "
+        f"snapshot read {mb / snap_s:.3f} MB/s")
+    mds_s, create_lat, (fw_s, _), (fr_s, _) = res["cephfs"]
+    mb = CW_FS_FILES * CW_FS_FILE / 1e6
+    log(f"client windows [{card}]: CephFS (data on the cauchy pool, "
+        f"metadata on the replicated pool; {CW_FS_FILES} x "
+        f"{CW_FS_FILE >> 20} MiB files, {CW_FS_DEPTH} in flight): MDS start "
+        f"{mds_s:.3f} s, create p50 {ms(oc_pct(create_lat, 0.5))}, write "
+        f"{mb / fw_s:.3f} MB/s, read {mb / fr_s:.3f} MB/s")
+    (put_s, put_lat), (get_s, get_lat), multi_s = res["rgw"]
+    mb = CW_RGW_OBJECTS * CW_RGW_OBJECT / 1e6
+    log(f"client windows [{card}]: RGW (replicated pool, signed S3 over "
+        f"loopback, {CW_RGW_OBJECTS} x {CW_RGW_OBJECT >> 20} MiB): PUT "
+        f"{mb / put_s:.3f} MB/s, p50 {ms(oc_pct(put_lat, 0.5))} p99 "
+        f"{ms(oc_pct(put_lat, 0.99))}; GET {mb / get_s:.3f} MB/s, p50 "
+        f"{ms(oc_pct(get_lat, 0.5))} p99 {ms(oc_pct(get_lat, 0.99))}; "
+        f"multipart {CW_RGW_PARTS} x {CW_RGW_PART >> 20} MiB "
+        f"{multi_s:.3f} s; ETags and bytes checked")
+    build_s, driver, (ireq, ibat), (creq, cbat), enc_s = res["sidecar"]
+    log(f"client windows [{card}]: EC sidecar: g++ builds waited "
+        f"{build_s:.3f} s; native driver (ISA k8m4, 512 B chunks) "
+        f"{json.dumps(driver, sort_keys=True)}, {ireq} requests in {ibat} "
+        f"batches; cauchy_good k8m4 {CW_SIDECAR_REQUESTS} concurrent "
+        f"encodes of {CW_SIDECAR_CHUNK >> 10} KiB chunks and one decode of "
+        f"{CW_SIDECAR_ERASURES}: {creq} requests in {cbat} batches, the "
+        f"encodes {ms(enc_s)}; every reply equal to the plain CPU codec's")
+    pgs, bad, scrub_s = res["scrub"]
+    log(f"client windows [{card}]: deep scrub of the {pgs} EC PGs the "
+        f"windows wrote {scrub_s:.3f} s, {bad} inconsistent; shards equal "
+        f"to the plain CPU codec's: "
+        f"{json.dumps(res['shards'], sort_keys=True)}; longest loop block "
+        "by window: " + ", ".join(
+            f"{step} {ms(out['loop_steps'].get(step, 0.0))}"
+            for step in ("rados bench", "rbd", "cephfs", "rgw", "sidecar",
+                         "client scrub")) + f"; the windows "
+        f"{out['t']['clients']:.3f} s")
 
 
 def card_name() -> str:
@@ -3628,6 +4441,8 @@ def main() -> int:
 
     def mark(name):
         marks.append((name, time.perf_counter()))
+        log(f"phase clock (so far): {name} "
+            f"{marks[-1][1] - marks[-2][1]:.3f} s")
 
     t0 = time.perf_counter()
     _build.build_all()

@@ -831,6 +831,36 @@ def test_shared_placements_equal_fresh_ones_and_follow_their_inputs():
     assert (cache.misses, cache.hits) == (3, 9)
 
 
+def test_a_pool_snapshot_keeps_its_shared_placement():
+    """A snapshot changes the pool's snapshot fields and nothing it is
+    placed by: its placement key stays (an RBD ``snap_create`` on an
+    ``indep`` pool must not remap the pool on every daemon), while its
+    ``pg_num`` or ``size`` changes the key."""
+    import copy
+    import dataclasses
+
+    from ceph_tpu_torch.cluster.vstart import PlacementCache
+    from ceph_tpu_torch.osdmap.osdmap import build_simple_osdmap
+
+    base = build_simple_osdmap(16, 4, 64, device="cpu")
+    key = base._raw_key(1)
+    pool = base.pools[1]
+    snapped = copy.deepcopy(base)
+    snapped.pools[1] = dataclasses.replace(
+        pool, snap_seq=7, snaps={7: "s"}, removed_snaps=(3,))
+    assert snapped._raw_key(1) == key
+    for change in (dict(pg_num=32, pgp_num=32), dict(size=2)):
+        m = copy.deepcopy(base)
+        m.pools[1] = dataclasses.replace(pool, **change)
+        assert m._raw_key(1) != key, change
+    cache = PlacementCache()
+    base.set_device("cpu", cache)
+    snapped.set_device("cpu", cache)
+    want = base.pool_raw_up(1)
+    assert (snapped.pool_raw_up(1) == want).all()
+    assert (cache.misses, cache.hits) == (1, 1)
+
+
 def test_a_cluster_holds_the_shared_placements_while_it_runs():
     """``start_cluster`` hands its daemons one ``PlacementCache``: the
     OSDs that map a new pool compute it once and share it."""

@@ -15,7 +15,12 @@
   raise where there is none;
 - so do an ``OSDDaemon``, a ``RadosClient`` and ``start_cluster``; and a
   CPU cluster started, written and read in a fresh process leaves JAX and
-  ``ceph_tpu`` out of ``sys.modules``.
+  ``ceph_tpu`` out of ``sys.modules``;
+- so do an ``MDSDaemon``, ``Cluster.start_mds`` of a cluster that names
+  no device, the ``rados`` and ``ceph`` CLIs and the EC sidecar; and an
+  RBD image, a CephFS file and an RGW object written and read on a CPU
+  cluster in a fresh process leave JAX and ``ceph_tpu`` out of
+  ``sys.modules``.
 """
 
 import os
@@ -521,3 +526,133 @@ def test_osd_client_and_cluster_default_to_cuda_and_refuse_cpu_fallback(
     assert OSDDaemon(0, ("127.0.0.1", 1)).device == torch.device("cuda", 0)
     assert RadosClient(("127.0.0.1", 1)).objecter.device == \
         torch.device("cuda", 0)
+
+
+def test_mds_clis_and_sidecar_default_to_cuda_and_refuse_cpu_fallback(
+        monkeypatch):
+    """An MDS rank, ``start_mds`` of a cluster that names no device, the
+    ``rados`` and ``ceph`` CLIs and the EC sidecar, asked for no device,
+    want CUDA and raise without it (before anything connects); with a
+    card they name it by index."""
+    import asyncio
+
+    from ceph_tpu_torch.cluster.mds import MDSDaemon
+    from ceph_tpu_torch.cluster.vstart import Cluster
+    from ceph_tpu_torch.tools import ceph, rados
+    from ceph_tpu_torch.tools.ec_sidecar import Sidecar
+    from ceph_tpu_torch.utils import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MDSDaemon(("127.0.0.1", 1), 1, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MDSDaemon(("127.0.0.1", 1), 1, 2, device="cuda")
+    assert MDSDaemon(("127.0.0.1", 1), 1, 2,
+                     device="cpu").device.type == "cpu"
+    cluster = Cluster(mons=[], osds={}, mon_addrs=[("127.0.0.1", 1)],
+                      config=Config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        asyncio.run(cluster.start_mds(1, 2))
+    assert not cluster.mdss
+    for argv in (["--mon", "127.0.0.1:1", "lspools"],
+                 ["--mon", "127.0.0.1:1", "-p", "p", "bench", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            asyncio.run(rados._run(rados.parse_args(argv)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        asyncio.run(ceph._run(ceph.parse_args(["--mon", "127.0.0.1:1",
+                                               "status"])))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Sidecar()
+    assert Sidecar(device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert MDSDaemon(("127.0.0.1", 1), 1, 2).device == \
+        torch.device("cuda", 0)
+    assert Sidecar().device == torch.device("cuda", 0)
+
+
+def test_start_mds_hands_the_clusters_device_to_the_rank(monkeypatch):
+    """``start_mds`` builds its rank on the cluster's device, and the
+    rank's own RADOS client on the rank's."""
+    import asyncio
+
+    from ceph_tpu_torch.cluster import objecter
+    from ceph_tpu_torch.cluster.mds import MDSDaemon
+    from ceph_tpu_torch.cluster.vstart import Cluster
+    from ceph_tpu_torch.utils import Config
+
+    seen = []
+
+    async def start(self, host="127.0.0.1", port=0):
+        seen.append(self.device)
+        client = objecter.RadosClient(self.mon_addr, device=self.device)
+        seen.append(client.objecter.device)
+        return ("127.0.0.1", 9)
+
+    monkeypatch.setattr(MDSDaemon, "start", start)
+    cluster = Cluster(mons=[], osds={}, mon_addrs=[("127.0.0.1", 1)],
+                      config=Config(), device=torch.device("cpu"))
+    daemon = asyncio.run(cluster.start_mds(1, 2, rank=1))
+    assert daemon.device.type == "cpu" and cluster.mdss == {1: daemon}
+    assert [d.type for d in seen] == ["cpu", "cpu"]
+
+
+def test_clients_leave_jax_and_reference_out():
+    """A fresh process starts a CPU cluster, writes an RBD image on an EC
+    pool, a CephFS file through an MDS and an RGW object, reads each
+    back, and has imported neither JAX nor ``ceph_tpu``."""
+    code = (
+        "import asyncio, sys\n"
+        "from ceph_tpu_torch.cluster.vstart import start_cluster\n"
+        "from ceph_tpu_torch.cluster.rbd import RBD\n"
+        "from ceph_tpu_torch.cluster.mds import MDSClient\n"
+        "from ceph_tpu_torch.cluster.rgw import RGW\n"
+        "from ceph_tpu_torch.cluster.rgw_http import RGWFrontend\n"
+        "import ceph_tpu_torch.cluster.rgw_sync\n"
+        "import ceph_tpu_torch.cluster.rbd_mirror\n"
+        "import ceph_tpu_torch.tools.rados, ceph_tpu_torch.tools.ceph\n"
+        "import ceph_tpu_torch.tools.objectstore_tool\n"
+        "import ceph_tpu_torch.tools.ec_sidecar\n"
+        "async def io():\n"
+        "    c = await start_cluster(3, device='cpu')\n"
+        "    try:\n"
+        "        cl = await c.client()\n"
+        "        ec = await cl.pool_create('ec', 'erasure', pg_num=4,"
+        " ec_profile={'plugin': 'isa', 'k': '2', 'm': '1'})\n"
+        "        rep = await cl.pool_create('rep', 'replicated', pg_num=4,"
+        " size=2)\n"
+        "        rbd = RBD(cl.ioctx(ec))\n"
+        "        await rbd.create('img', 1 << 16, stripe_unit=8192,"
+        " object_size=16384)\n"
+        "        img = await rbd.open('img')\n"
+        "        await img.write(1000, b'r' * 20000)\n"
+        "        assert await img.read(1000, 20000) == b'r' * 20000\n"
+        "        await c.start_mds(rep, ec)\n"
+        "        for _ in range(400):\n"
+        "            await cl.objecter._refresh_map()\n"
+        "            if cl.objecter.osdmap.mds_addrs:\n"
+        "                break\n"
+        "            await asyncio.sleep(0.05)\n"
+        "        assert c.mds.device.type == 'cpu'\n"
+        "        fs = MDSClient(cl, ec, meta_pool=rep)\n"
+        "        await fs.create('/f')\n"
+        "        await fs.write('/f', 0, b'f' * 9000)\n"
+        "        assert await fs.read('/f') == b'f' * 9000\n"
+        "        rgw = RGW(cl.ioctx(rep))\n"
+        "        await rgw.create_bucket('b')\n"
+        "        await rgw.put_object('b', 'k', b'g' * 7000)\n"
+        "        assert (await rgw.get_object('b', 'k'))[1] == b'g' * 7000\n"
+        "    finally:\n"
+        "        await c.stop()\n"
+        "asyncio.run(asyncio.wait_for(io(), 90))\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'ceph_tpu' or m.startswith('ceph_tpu.')"
+        " or m == 'google_crc32c']\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=150)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
