@@ -31,14 +31,15 @@ with one truthiness test — the disabled hot path is one global load
 plus one bool, allocating and retaining nothing (pinned by
 tests/test_racecheck.py).
 
-This module never imports cluster code (the probes import US).  The
-reference's seeded scenario runner (``race_run``) needs the scenario
-layer, which the port does not have yet.
+This module never imports cluster code at module level (the probes
+import US); the scenario runner below resolves its imports lazily.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
+import tempfile
 import traceback
 from typing import Dict, List, Optional, Tuple
 
@@ -259,3 +260,54 @@ def from_config(config):
     if not getattr(config, "race_check_enabled", 0):
         return NULL_RACE
     return RaceTracker(seed=getattr(config, "race_check_seed", 0))
+
+
+# -- the seeded race run -----------------------------------------------------
+
+
+def race_run(scenario_name: str, seed: int, tmpdir: Optional[str] = None,
+             shrink: bool = False, device=None):
+    """One scenario under the perturbed loop with the tracker armed.
+
+    Returns ``(verdict, race_report, trace_digest)``.  Imports resolve
+    lazily — the probes import this module, so the module must never
+    import cluster code at its top.  ``shrink`` scales the workload
+    down (fewer objects, smaller payloads, tamer bursts) for the
+    budget-bounded tier-1 smoke; rounds are preserved so the event
+    schedule (kills, revives, crash points) stays valid.  ``device``:
+    the card the scenario's cluster runs on (CUDA unless named; raises
+    without one).  The daemons' executor threads hand their results
+    back through the running loop, which is the perturbed one."""
+    from ceph_tpu_torch.chaos.scenario import builtin_scenarios, run_scenario
+    from ceph_tpu_torch.utils.device import resolve_device_index
+    from ceph_tpu_torch.utils.schedfuzz import SchedFuzzLoop
+
+    scens = builtin_scenarios()
+    if scenario_name not in scens:
+        raise KeyError(scenario_name)
+    device = resolve_device_index(device)
+    sc = scens[scenario_name]
+    if shrink:
+        sc = dataclasses.replace(
+            sc, objects_per_round=min(4, sc.objects_per_round),
+            payload_repeat=min(10, sc.payload_repeat),
+            burst_concurrency=min(4, sc.burst_concurrency))
+    tracker = RaceTracker(seed=seed)
+    prev = install(tracker)
+    loop = SchedFuzzLoop(seed, on_tick=tracker.advance_tick)
+    own_tmp = None
+    if tmpdir is None:
+        # file-store scenarios need a backing dir; own it for the run
+        own_tmp = tempfile.TemporaryDirectory(prefix="race_run_")
+        tmpdir = own_tmp.name
+    try:
+        asyncio.set_event_loop(loop)
+        verdict = loop.run_until_complete(
+            run_scenario(sc, seed, tmpdir, device=device))
+    finally:
+        install(prev)
+        asyncio.set_event_loop(None)
+        loop.close()
+        if own_tmp is not None:
+            own_tmp.cleanup()
+    return verdict, tracker.report(), loop.trace_digest()

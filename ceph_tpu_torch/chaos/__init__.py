@@ -5,8 +5,12 @@ Counterpart of ``ceph_tpu/chaos/``.  The port holds ``rng`` (per-injector
 streams of one scenario seed), ``counters`` (the process-wide ``CHAOS``
 registry the admin socket's ``chaos report`` serves), ``clock`` (the
 skewable per-daemon time source), ``points`` (client-library interrupt
-seams), ``disk`` (store faults) and ``net`` (messenger faults).  The
-daemon injector and the scenario runners arrive with the cluster.
+seams), ``disk`` (store faults), ``net`` (messenger faults), ``daemons``
+(kill / crash / revive / restart, partitions), ``invariants`` (the
+post-convergence checks), ``scenario`` (the seeded scenario runner) and
+``integrity`` (the bitrot-under-load and disk-fill-drain runners).  The
+reference's front-door runner (``frontdoor``) and elastic runner
+(``balance``) come later.
 """
 
 import asyncio as _asyncio
@@ -27,6 +31,12 @@ from ceph_tpu_torch.chaos.counters import (  # noqa: E402,F401
     chaos_report,
     chaos_total,
 )
+from ceph_tpu_torch.chaos.daemons import (  # noqa: E402,F401
+    DaemonInjector,
+    heal_partitions,
+    partition,
+    zero_rates,
+)
 from ceph_tpu_torch.chaos.disk import DiskInjector  # noqa: E402,F401
 from ceph_tpu_torch.chaos.net import (  # noqa: E402,F401
     NetInjector,
@@ -37,3 +47,12 @@ from ceph_tpu_torch.chaos.points import (  # noqa: E402,F401
     maybe_interrupt,
 )
 from ceph_tpu_torch.chaos.rng import derive_seed, stream  # noqa: E402,F401
+from ceph_tpu_torch.chaos.scenario import (  # noqa: E402,F401
+    Event,
+    Scenario,
+    Verdict,
+    build_schedule,
+    builtin_scenarios,
+    ev,
+    run_scenario,
+)

@@ -490,10 +490,12 @@ class ECBackendMixin:
                     return -110
                 finally:
                     self._pending.pop(reqid, None)
-                if send_failures:
-                    # a shard sub-write never left this host: unlike the
-                    # replicated path (full copies, reachable set
-                    # suffices) every EC shard is unique, so the stripe
+                refused = any(r != 0 for r, _p in fut.result())
+                if send_failures or refused:
+                    # a shard sub-write never left this host, or a member
+                    # refused it (a gap in its log, _sub_write_gapped):
+                    # unlike the replicated path (full copies, reachable
+                    # set suffices) every EC shard is unique, so the stripe
                     # is NOT k+m durable and must not ack — the
                     # reference blocks EC writes until EVERY acting
                     # shard commits.  Stay un-acked (-110): the
@@ -501,8 +503,15 @@ class ECBackendMixin:
                     # client retries against the post-peering acting
                     # set.  (Surfaced by graft-chaos: a just-restarted
                     # primary with dead peer sessions could ack a
-                    # 1-shard stripe.)
+                    # 1-shard stripe.)  A member that refused it has a
+                    # gap (an earlier sub-write shed or dropped) that it
+                    # refuses every later one across: queue the round
+                    # that resyncs it now, since the frontier may not
+                    # drain under a steady stream and no map change is
+                    # due.
                     self._frontier_done(st, eversion, ok=False)
+                    if refused:
+                        self._queue_recovery_retry(st)
                     return -110
         except BaseException:
             self._frontier_done(st, eversion, ok=False)
@@ -770,12 +779,35 @@ class ECBackendMixin:
                 span.annotate(shard=msg.shard, oid=msg.oid)
                 span.finish()
 
+    def _sub_write_gapped(self, msg: M.MOSDECSubOpWrite) -> bool:
+        """A client mutation's sub-write (one that carries the client's
+        deadline; recovery pushes carry none and may skip superseded
+        entries) whose entry does not follow this member's log head: an
+        earlier sub-write of the PG never arrived here (a dropped batch
+        item, a member that joined acting before it was recovered).
+        Applying it would put the head past an object this member does
+        not hold, and peering, which compares heads, would never push
+        that object: the member refuses it instead, the op stays
+        un-acked, and the primary queues a recovery round that resyncs
+        it (``_ec_commit_finish``)."""
+        if msg.entry is None or msg.deadline is None:
+            return False
+        st = self.pgs.get(msg.pgid)
+        if st is None or msg.entry.version <= st.last_update:
+            return False
+        return st.last_update < msg.entry.prior_version
+
     async def _handle_ec_write(self, conn: Connection,
                                msg: M.MOSDECSubOpWrite) -> None:
         if self._sub_op_expired(msg):
             # dead work: the parent op's client deadline passed — no
             # apply, no reply (the primary times out and stays un-acked,
             # so a shed shard can never count toward durability)
+            return
+        if self._sub_write_gapped(msg):
+            self.perf.inc("osd_ec_sub_write_gaps")
+            await self._reply_osd(conn, msg, M.MOSDECSubOpWriteReply(
+                reqid=msg.reqid, result=-11))
             return
         self._apply_ec_sub_write(msg)
         await self._reply_osd(conn, msg, M.MOSDECSubOpWriteReply(
@@ -794,6 +826,11 @@ class ECBackendMixin:
                 # never land; the primaries' acks all die with us
                 self._chaos_point("batch_apply_mid")
             if self._sub_op_expired(item):
+                continue
+            if self._sub_write_gapped(item):
+                # refused: its primary's op fails at once
+                self.perf.inc("osd_ec_sub_write_gaps")
+                results.append((item.reqid, -11, item.shard))
                 continue
             try:
                 self._apply_ec_sub_write(item)

@@ -133,6 +133,8 @@ class Monitor(Dispatcher):
         self.osd_unclean: Dict[int, Tuple[int, int]] = {}
         self._placement_epoch = 0
         self.perf = PerfCounters("mon")
+        # erasure profile -> k, for the pg_temp mint (_ec_data_chunks)
+        self._ec_k: Dict[Tuple, int] = {}
         # chaos-skewable per-daemon time source: lease staleness, beacon
         # grace, and the down-out tick all judge from THIS clock, so a
         # skewed monitor really does fire early elections / false downs
@@ -707,6 +709,10 @@ class Monitor(Dispatcher):
         with empty osds).  Minted entries ride IN the same Incremental,
         so every quorum member and subscriber applies one atomic view.
 
+        An erasure PG is minted when the remap leaves fewer than k
+        surviving old holders in their own slots (``_ec_handoff_mask``),
+        which includes a wholesale remap.
+
         Also sweeps the opposite edge: a temp entry whose members were
         ALL purged from the map pins the PG to ids that can never come
         back — clear it and let acting fall back to up.  Down-but-
@@ -720,7 +726,8 @@ class Monitor(Dispatcher):
         handoff, an empty new set, a surviving donor) and Python only
         for the seeds that do.  A pool the old map lacks has no donors,
         and seeds past the old pg_num have none either.  Entries and
-        counters equal the per-PG ``pg_raw_up`` loop's."""
+        counters equal the per-PG ``pg_raw_up`` loop's with the erasure
+        rule above in it."""
         placement = (inc.new_up or inc.new_weights or inc.new_pools
                      or inc.new_pg_upmap_items or inc.new_crush_hosts
                      or inc.old_osds or inc.new_primary_affinity)
@@ -746,13 +753,17 @@ class Monitor(Dispatcher):
                 new_raw, new_len, _ = new._pool_raw(pid)
                 old_raw, new_raw = old_raw[:n], new_raw[:n]
                 donor = survives(old_raw)
-                shared = (donor[:, :, None] & (
-                    old_raw[:, :, None] == new_raw[:, None, :])).any(
-                        axis=(1, 2))
                 cols = np.arange(new_raw.shape[1])
                 nonempty = ((new_raw >= 0)
                             & (cols[None, :] < new_len[:n, None])).any(axis=1)
-                mint = nonempty & donor.any(axis=1) & ~shared
+                if pool.can_shift_osds():
+                    shared = (donor[:, :, None] & (
+                        old_raw[:, :, None] == new_raw[:, None, :])).any(
+                            axis=(1, 2))
+                    mint = nonempty & donor.any(axis=1) & ~shared
+                else:
+                    mint = self._ec_handoff_mask(pool, donor, old_raw,
+                                                 new_raw, nonempty)
                 # an explicit request wins, and an armed handoff (a live
                 # member in the old entry) is never re-derived: a mid-
                 # blip re-mint would compute its donors from a DEGRADED
@@ -790,6 +801,39 @@ class Monitor(Dispatcher):
                        for o in temp if o >= 0):
                 inc.new_pg_temp[pgid] = []
                 self.perf.inc("mon_pg_temp_swept")
+
+    def _ec_handoff_mask(self, pool, donor, old_raw, new_raw, nonempty):
+        """The seeds of an erasure pool to mint: those whose remap leaves
+        fewer than k (the profile's data chunks, whatever ``min_size``
+        says) surviving old holders in their own slots while others
+        survive.  That holds for a wholesale remap (no old holder in the
+        new set, none in place) and for an indep retry that moves several
+        slots for one out OSD: the new acting set cannot decode the
+        PG's objects though it shares members, and recovery gathers from
+        acting only, so the old holders stay acting until the new
+        members are backfilled.  A deliberate difference from ceph_tpu's
+        mint, which needs a wholesale remap; the tests that hold the mint
+        to the reference replace this by the wholesale rule."""
+        w = min(old_raw.shape[1], new_raw.shape[1])
+        in_place = (donor[:, :w] & (
+            old_raw[:, :w] == new_raw[:, :w])).sum(axis=1)
+        return nonempty & (in_place < self._ec_data_chunks(pool)) & (
+            donor.sum(axis=1) > in_place)
+
+    def _ec_data_chunks(self, pool) -> int:
+        """k of an erasure pool, from its codec (a profile may leave k to
+        the plugin's default), once per profile."""
+        key = tuple(sorted(pool.ec_profile.items()))
+        k = self._ec_k.get(key)
+        if k is None:
+            from ceph_tpu_torch.ec import factory
+
+            profile = dict(pool.ec_profile) or {
+                "plugin": "jerasure", "technique": "reed_sol_van",
+                "k": "2", "m": "1"}
+            k = factory(profile, device=self.device).get_data_chunk_count()
+            self._ec_k[key] = k
+        return k
 
     async def _apply_inc_local(self, inc: Incremental) -> None:
         """Apply a delta to the replicated map, log it, broadcast it."""

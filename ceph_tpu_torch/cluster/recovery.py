@@ -261,11 +261,16 @@ class RecoveryMixin:
             else:
                 # replay in VERSION order so the member's log advances
                 # monotonically (out-of-order pushes would hit the
-                # duplicate guard and leave silent log holes)
+                # duplicate guard and leave silent log holes), and stop
+                # at the first failed push: a later one would move the
+                # member's head past the object it still lacks, and the
+                # next round, which compares heads, would never push it
                 for oid, entry in sorted(to_sync.items(),
                                          key=lambda kv: kv[1].version):
-                    complete &= await self._push_object(
-                        pool, st, osd, oid, entry)
+                    if not await self._push_object(pool, st, osd, oid,
+                                                   entry):
+                        complete = False
+                        break
 
         # roll-forward (reference PG::activate: last_complete =
         # last_update once missing is empty): every acting member

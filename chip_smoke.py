@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement, device mesh, OSD store path, control plane, OSD cluster and its clients on the CUDA cards.
+"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement, device mesh, OSD store path, control plane, OSD cluster and its clients, and its chaos runner and load driver on the CUDA cards.
 
 Run from the repository root with no arguments:
 
@@ -187,7 +187,7 @@ non-zero if any of them fails:
    on the ISA pool, every read compared with the block; an RBD image of
    64 MiB on the ISA pool at RBD's default layout (4 MiB objects,
    ``stripe_unit`` the object size, ``stripe_count`` 1): 16 sequential
-   4 MiB writes with 8 in flight, 64 random 4 KiB overwrites of distinct
+   4 MiB writes with 8 in flight, 32 random 4 KiB overwrites of distinct
    blocks from the seed (fio's ``randwrite 4k``), a full read against a
    host model of the image, a snapshot and its full read;
    ``Cluster.start_mds`` with its metadata on the replicated pool and
@@ -210,10 +210,32 @@ non-zero if any of them fails:
    beside the card: each window's MB/s and p50/p99 latencies, the MDS
    start and create times, the sidecar's batches and the driver's rate,
    the scrub and the longest loop block of each window;
-10. one launch: a torch.profiler trace of one cauchy ``encode_planar``
+10. chaos and load (``ceph_tpu_torch/chaos/{daemons,invariants,scenario,
+   integrity}.py``, ``load/{dist,driver,slo}.py``,
+   ``analysis/racecheck.race_run``): (a) last on phase 9's cluster,
+   ``LoadContext.create`` of the library's ``read-heavy`` spec at 256
+   PGs (jerasure reed_sol_van k2m1, 4096 B payloads, zipf 1.2 over 32
+   objects, 64 clients at 1.2 ops/s for 2.5 s over four sessions) and
+   one ``run_load`` window judged by the SLO gates from the mgr's scrape
+   (goodput at least half the offered ops, p99 at most 5000 ms, the
+   client window not collapsed below 2, health clear, no ack past its
+   deadline); every object the window left is read back (a tracked one
+   must hold a whole payload the window attempted) and every shard of it
+   held to the plain CPU codec's; (b) ``run_scenario`` of the library's
+   ``batch-smoke`` twice at seed 31, ``thrash-ec-midwrite`` and
+   ``integrity_scenarios()["bitrot-under-load"]``, each on a fresh
+   cluster on ``cuda:0``: every verdict passes (its durability invariant
+   reads back every acked object and checks its crc), each replay key is
+   the passing one of its schedule, and the two ``batch-smoke`` keys are
+   equal; (c) ``race_run("batch-smoke", SEED, shrink=True)`` on the card:
+   the verdict passes and the race tracker convicts nothing.  Printed
+   beside the card: the gate rows, the offered and acked ops, each
+   scenario's schedule length, the faults that fired, the acked objects,
+   the heal, converge and invariant times and the wall time;
+11. one launch: a torch.profiler trace of one cauchy ``encode_planar``
    call shows exactly one device kernel, B2's staged kernel, and no
    ``pack_blocks_kernel``;
-11. timing: CUDA-event medians of B1 and B2 and of their plain versions at
+12. timing: CUDA-event medians of B1 and B2 and of their plain versions at
    their headline shapes (L2 flushed before each launch), each kernel's
    share of its bound, a same-traffic yardstick (``torch.bitwise_xor`` of
    the two 8 MiB halves of a (64, 262144) uint8 tensor into 8 MiB), the
@@ -251,7 +273,8 @@ the client windows: the ISA pool's launches B1 and not B2, the cauchy
 pool's B2 and not B1, the replicated pool's neither; rados bench and RBD
 B1 and not B2, CephFS B2 and not B1, RGW, the sidecar's ISA driver and
 the client scrub neither, the sidecar's cauchy requests B2 and not B1;
-every launch staged.  Before the
+every launch staged.  Phase 10's load window (among phase 9's) and each
+scenario of (b) and (c) are main paths too: B1 and not B2.  Before the
 last lines, one ``phase clock`` line a phase gives its seconds.  The last
 lines are the card's name and power limit, one JSON object describing each
 kernel (B1's and B2's launches summed over every main path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -3448,7 +3471,8 @@ CW_BLOCK = 4 << 20              # rados bench's default block
 CW_RBD_SIZE = 64 << 20          # RBD's default layout: 4 MiB objects,
 CW_RBD_OBJECT = 4 << 20         # stripe_unit = object size, stripe_count 1
 CW_RBD_DEPTH = 8                # 4 MiB writes in flight
-CW_RBD_SMALL = 64               # fio randwrite 4k: 64 distinct blocks
+CW_RBD_SMALL = 32               # fio randwrite 4k: 32 distinct blocks
+                                # (64 took 102.5 s of a 782 s call)
 CW_RBD_SMALL_DEPTH = 8          # in flight (32 timed ops out at 120 s)
 CW_FS_FILES = 8                 # CephFS files of 4 MiB on the cauchy pool
 CW_FS_FILE = 4 << 20
@@ -4026,7 +4050,7 @@ async def osd_cluster(dev, card: str, reset_counts, gf8_mods, store_dir):
                              {k: globals()[k] for k in OC_WORKER_CONSTS})
         return await osd_cluster_run(dev, card, reset_counts, gf8_mods,
                                      store_dir, out, data, inputs, cfg,
-                                     build, fut)
+                                     build, fut, workers)
     finally:
         workers.shutdown(wait=True, cancel_futures=True)
         for p in build[2]:
@@ -4036,9 +4060,10 @@ async def osd_cluster(dev, card: str, reset_counts, gf8_mods, store_dir):
 
 
 async def osd_cluster_run(dev, card, reset_counts, gf8_mods, store_dir,
-                          out, data, inputs, cfg, build, fut):
+                          out, data, inputs, cfg, build, fut, workers):
     """``osd_cluster`` once the sidecar's builds and the expected shards'
-    worker have started."""
+    worker have started; phase 10a's load window last, on the same
+    cluster (``workers`` computes its plain shards)."""
     import asyncio
 
     import torch
@@ -4190,8 +4215,13 @@ async def osd_cluster_run(dev, card, reset_counts, gf8_mods, store_dir,
         await cluster.revive_osd(OC_VICTIM, with_store=True)
         await oc_wait(lambda: cluster.mon.osdmap.osd_up[OC_VICTIM],
                       "never back up")
-        await client.objecter.mon_command({"prefix": "osd in",
-                                           "id": OC_VICTIM})
+        try:
+            await client.objecter.mon_command({"prefix": "osd in",
+                                               "id": OC_VICTIM})
+        except TimeoutError as e:
+            raise AssertionError(
+                f"OSD cluster: `osd in` never answered; "
+                f"{oc_state(cluster, objects)}") from e
         await oc_wait(lambda: cluster.mon.osdmap.osd_weight[OC_VICTIM] > 0,
                       "never back in")
         await oc_settle(cluster, objects, "PGs clean after backfill")
@@ -4211,6 +4241,16 @@ async def osd_cluster_run(dev, card, reset_counts, gf8_mods, store_dir,
         await client_windows(cluster, client, pools, dev, inputs, shards,
                              out, watch, window, reset, store_dir, build)
         out["t"]["clients"] = time.perf_counter() - t1
+        out["t"]["phase 9"] = time.perf_counter() - t0
+        if out["t"]["phase 9"] > OC_BOUND_S:
+            raise AssertionError(
+                f"OSD cluster: {out['t']['phase 9']:.1f} s past its "
+                f"{OC_BOUND_S} s bound before the load window")
+        t1 = time.perf_counter()
+        await asyncio.wait_for(load_window(
+            cluster, client, dev, workers, cfg.osd_ec_stripe_unit, out,
+            watch, window, reset), LW_BOUND_S)
+        out["t"]["load window"] = time.perf_counter() - t1
         out["loop_steps"] = dict(watch.by_step)
         watch.step = "teardown"
         out["map"] = (sum(o.map_advance_seconds
@@ -4276,8 +4316,10 @@ def phase_osd_cluster(card: str, reset_counts, gf8_mods, dev=None):
     t0 = time.perf_counter()
     dev = dev or torch.device("cuda", 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_osds_") as tmp:
+        # phase 9's own bound is checked before the load window opens
         out = asyncio.run(asyncio.wait_for(
-            osd_cluster(dev, card, reset_counts, gf8_mods, tmp), OC_BOUND_S))
+            osd_cluster(dev, card, reset_counts, gf8_mods, tmp),
+            OC_BOUND_S + LW_BOUND_S))
     wins = out["windows"]
     for label, ((b1, b1k), (b2, b2k)) in wins.items():
         log(f"main path (OSD cluster, {label}): B1 launches {b1} "
@@ -4295,7 +4337,7 @@ def phase_osd_cluster(card: str, reset_counts, gf8_mods, dev=None):
     if wins["rep"][0][0] or wins["rep"][1][0]:
         raise AssertionError("OSD cluster: the replicated pool launched an "
                              f"EC kernel; recovery work {work('rep')}")
-    for label, b1_want, b2_want in CW_WINDOWS:
+    for label, b1_want, b2_want in CW_WINDOWS + (("load", True, False),):
         (b1, _), (b2, _) = wins[label]
         if (b1 > 0) != b1_want or (b2 > 0) != b2_want:
             raise AssertionError(
@@ -4352,9 +4394,10 @@ def phase_osd_cluster(card: str, reset_counts, gf8_mods, dev=None):
         f"{t['expected wait']:.3f} s; the path "
         f"{t['path']:.3f} s, the phase {time.perf_counter() - t0:.3f} s")
     cw_log(out, card)
+    lw_log(out, card)
     b1 = sum(w[0][0] for w in wins.values())
     b2 = sum(w[1][0] for w in wins.values())
-    return b1, b2
+    return b1, b2, out["t"]["load window"]
 
 
 def cw_log(out, card: str) -> None:
@@ -4413,6 +4456,299 @@ def cw_log(out, card: str) -> None:
             for step in ("rados bench", "rbd", "cephfs", "rgw", "sidecar",
                          "client scrub")) + f"; the windows "
         f"{out['t']['clients']:.3f} s")
+
+
+# -- phase 10: the load driver and the chaos runner ---------------------------
+
+LW_SPEC = "read-heavy"          # ceph_tpu_torch/load/driver.py's library
+LW_PG_NUM = 256                 # Ceph's PG guidance for 24 OSDs, as phase 9's
+LW_RATE = 1.2                   # ops/s a client: the spec's own offered rate
+LW_BOUND_S = 150.0              # the load window: create, drive, checks
+# the OSDs' counts of what fails an EC write without a map change: sub-writes
+# shed past their deadline, sub-writes refused across a gap in a member's
+# log, and the recovery rounds that resync such members
+LW_OSD_COUNTERS = ("osd_sub_ops_shed_expired", "osd_ec_sub_write_gaps",
+                   "osd_recovery_retries")
+# (scenario, seed): the runner's library at its own sizes, each on a fresh
+# cluster on the card; batch-smoke twice at the seed of the reference's
+# tests, for the seed-replay contract
+CH_RUNS = (("batch-smoke", 31), ("batch-smoke", 31),
+           ("thrash-ec-midwrite", SEED), ("bitrot-under-load", SEED))
+CH_BOUND_S = 150.0              # one scenario, boot to teardown
+RACE_RUN = ("batch-smoke", SEED)
+
+
+def lw_spec():
+    """The library's ``read-heavy`` spec at phase 9's PG count and at
+    ``LW_RATE``: its profile, payloads, object space, verb mix and gates
+    are the library's."""
+    import dataclasses
+
+    from ceph_tpu_torch.load.driver import builtin_specs
+
+    return dataclasses.replace(builtin_specs()[LW_SPEC], pg_num=LW_PG_NUM,
+                               rate=LW_RATE)
+
+
+def lw_expected_worker(profile, stripe_unit: int, objs):
+    """In the spawned worker: the plain CPU codec's shards of ``objs``
+    (``oc_expected``), as digests."""
+    import torch
+
+    torch.set_num_threads(3)       # the cluster's host threads run beside
+    _unit, shards = oc_expected(profile, stripe_unit, objs)
+    return {o: oc_digests(v) for o, v in shards.items()}
+
+
+async def load_window(cluster, client, dev, workers, stripe_unit, out,
+                      watch, window, reset):
+    """Phase 10a on phase 9's running cluster: ``LoadContext.create`` of
+    ``lw_spec()`` (its EC pool and four client sessions), the PGs clean,
+    then one ``run_load`` window counted from 0 just before and read just
+    after, judged by the SLO gates from the mgr's scrape.  Every object
+    the window left in the pool is then read back (a tracked object must
+    hold a whole payload the window attempted) and every shard of it in
+    every store held against the plain CPU codec's encode of the bytes
+    read, computed in the spawned worker."""
+    import asyncio
+
+    from ceph_tpu_torch.cluster.pg import _coll
+    from ceph_tpu_torch.ec import factory
+    from ceph_tpu_torch.load.driver import LoadContext, run_load
+
+    spec = lw_spec()
+    profile = dict(spec.ec_profile)
+    watch.step = "load setup"
+    t0 = time.perf_counter()
+    ctx = await LoadContext.create(spec, SEED, cluster=cluster)
+    if any(c.objecter.device != dev for c in ctx.sessions):
+        raise AssertionError("load window: a client session is off the card")
+    pool = cluster.mon.osdmap.pools[ctx.pool]
+    unit = factory(profile, device="cpu").stripe_unit(stripe_unit)
+    if int(pool.ec_profile["stripe_unit"]) != unit or \
+            pool.pg_num != LW_PG_NUM:
+        raise AssertionError("load window: the pool is not the one checked")
+    out["t"]["load create"] = time.perf_counter() - t0
+    out["t"]["load clean"] = await oc_wait(
+        lambda: oc_clean(cluster), "PGs clean after the load pool's create",
+        lambda: oc_state(cluster))
+    watch.step = "load window"
+
+    def osd_sums():
+        return {n: sum(osd.perf.get(n) for osd in cluster.osds.values())
+                for n in LW_OSD_COUNTERS}
+
+    before = osd_sums()
+    reset()
+    t1 = time.perf_counter()
+    result, report = await run_load(spec, SEED, ctx=ctx, record_acked=True)
+    out["t"]["load run"] = time.perf_counter() - t1
+    window("load")
+    osd_counts = {n: v - before[n] for n, v in osd_sums().items()}
+    out["load"] = {"rows": report.as_rows(), "offered": result.offered,
+                   "acked": result.acked_ops,
+                   "completed": dict(result.completed),
+                   "errors": dict(result.errors),
+                   "read_misses": result.read_misses,
+                   "late": len(result.late_acks),
+                   "elapsed": result.elapsed, "plan_key": result.plan_key,
+                   "osd": osd_counts}
+    if not report.passed:
+        raise AssertionError(
+            f"load window: SLO gates failed {report.failures()}; "
+            f"offered {result.offered}, acked {result.acked_ops}, errors "
+            f"{result.errors}; recovery work {out['work']['load']}")
+    watch.step = "load check"
+    t1 = time.perf_counter()
+    oids = sorted({o for osd in cluster.osds.values()
+                   for coll in osd.store.list_collections()
+                   if coll.startswith(f"pg_{ctx.pool}_")
+                   for o in osd.store.list_objects(coll)} & (
+        {f"obj{r}" for r in range(spec.objects)}
+        | {f"mob{r}" for r in range(spec.objects)}))
+    io = ctx.io(0)
+    got = {}
+    for oid in oids:
+        got[oid] = await io.read(oid, timeout=60)
+        if oid.startswith("obj") and \
+                got[oid] not in result.attempted.get(oid, ()):
+            raise AssertionError(f"load window: {oid} holds bytes no write "
+                                 "of the window attempted")
+    expected = await asyncio.wrap_future(workers.submit(
+        lw_expected_worker, profile, stripe_unit, got))
+    out["load"]["objects"] = len(oids)
+    out["load"]["shards"] = oc_check_shards(cluster, ctx.pool, expected,
+                                            "load window")
+    out["load"]["pgs"] = len({_coll(client.objecter.object_pgid(ctx.pool, o))
+                              for o in oids})
+    out["t"]["load check"] = time.perf_counter() - t1
+    await ctx.close()
+
+
+def lw_log(out, card: str) -> None:
+    """Phase 10a's lines: the gates, the offered and acked ops."""
+    res, t = out["load"], out["t"]
+    spec = lw_spec()
+    for row in res["rows"]:
+        log(f"load window [{card}]: gate {row['gate']}: value "
+            f"{row['value']}, threshold {row['threshold']}, "
+            f"{'pass' if row['passed'] else 'FAIL'} ({row['source']}"
+            + (f"; {row['note']}" if row["note"] else "") + ")")
+    log(f"load window [{card}]: spec {spec.name} ({spec.clients} clients "
+        f"over {spec.sessions} sessions, {spec.rate} ops/s each for "
+        f"{spec.duration} s, {spec.arrival}; zipf {spec.zipf_alpha} over "
+        f"{spec.objects} objects, {spec.payload} B payloads; verbs "
+        f"{dict(spec.verbs)}; pool jerasure reed_sol_van k2m1, "
+        f"{LW_PG_NUM} PGs): offered {res['offered']} ops, acked "
+        f"{res['acked']} {json.dumps(res['completed'], sort_keys=True)}, "
+        f"errors {json.dumps(res['errors'], sort_keys=True)}, read misses "
+        f"{res['read_misses']}, late acks {res['late']}, OSD counts "
+        f"{json.dumps(res['osd'], sort_keys=True)}; "
+        f"{res['acked'] / max(t['load run'], 1e-9):.3f} acked ops/s over "
+        f"the run's {t['load run']:.3f} s ({res['elapsed']:.3f} s between "
+        f"the scrapes); plan {res['plan_key'][:16]}; {res['objects']} "
+        f"objects in {res['pgs']} PGs read back, {res['shards']} shards "
+        f"equal to the plain CPU codec's; pool create {t['load create']:.3f}"
+        f" s, clean {t['load clean']:.3f} s, checks {t['load check']:.3f} s;"
+        f" phase 10a {t['load window']:.3f} s")
+
+
+class ChaosClock:
+    """Wraps the scenario runner's heal, converge and judge seams to time
+    them and to check the cluster's device; the runner itself is
+    unchanged."""
+
+    SEAMS = ("heal_cluster", "_converge", "judge_invariants")
+
+    def __init__(self, mod, dev):
+        self.mod, self.dev, self.t = mod, dev, {}
+        self.real = {n: getattr(mod, n) for n in self.SEAMS}
+
+    def __enter__(self):
+        for name in self.SEAMS:
+            setattr(self.mod, name, self._timed(name, self.real[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.mod, name, fn)
+
+    def _timed(self, name, fn):
+        async def timed(cluster, *args, **kwargs):
+            if any(d.device != self.dev for d in
+                   list(cluster.osds.values()) + cluster.mons):
+                raise AssertionError(f"chaos: a daemon is off {self.dev}")
+            t0 = time.perf_counter()
+            try:
+                return await fn(cluster, *args, **kwargs)
+            finally:
+                self.t[name] = time.perf_counter() - t0
+        return timed
+
+
+def phase_chaos(card: str, reset_counts, gf8_mods, dev=None):
+    """Phase 10b: ``run_scenario`` of each of ``CH_RUNS`` on its own fresh
+    cluster, every daemon on ``dev`` (``cuda:0`` unless named, for a
+    rehearsal), each run its own counted window; every verdict passes,
+    B1 launches in each and B2 in none, and the two ``batch-smoke`` runs
+    have equal replay keys, equal to a passing verdict on the schedule
+    built from the seed.  The runner's durability invariant reads back
+    every acked object and checks its crc before the cluster stops.
+    Returns the B1 and B2 launches summed."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.chaos import scenario as sc_mod
+    from ceph_tpu_torch.chaos.integrity import integrity_scenarios
+
+    dev = dev or torch.device("cuda", 0)
+    lib = {**sc_mod.builtin_scenarios(),
+           "bitrot-under-load": integrity_scenarios()["bitrot-under-load"]}
+    keys, b1_sum, b2_sum = {}, 0, 0
+    for name, seed in CH_RUNS:
+        sc = lib[name]
+        reset_counts()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as tmp, \
+                ChaosClock(sc_mod, dev) as clock:
+            v = asyncio.run(asyncio.wait_for(sc_mod.run_scenario(
+                sc, seed, tmpdir=tmp, device=dev), CH_BOUND_S))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+        (b1, b1k), (b2, b2k) = oc_launches(gf8_mods)
+        sched = sc_mod.build_schedule(sc, seed)
+        want = sc_mod.Verdict(name=name, seed=seed, schedule=sched,
+                              passed=True, failures=[]).replay_key()
+        faults = {k: n for k, n in sorted(v.counters.items())
+                  if k not in ("epochs_generated", "storm_wall_ms")}
+        log(f"chaos [{card}]: {name} seed {seed}: "
+            f"{'PASS' if v.passed else 'FAIL'}, schedule of {len(sched)} "
+            f"events, faults fired {json.dumps(faults)}, {v.acked_objects} "
+            f"acked objects, {v.counters.get('epochs_generated', 0)} epochs "
+            f"in {v.counters.get('storm_wall_ms', 0) / 1e3:.3f} s of rounds; "
+            f"heal {clock.t.get('heal_cluster', 0.0):.3f} s, converge after "
+            f"it {clock.t.get('_converge', 0.0):.3f} s, invariants "
+            f"{clock.t.get('judge_invariants', 0.0):.3f} s; wall "
+            f"{wall:.3f} s; B1 launches {b1} ({b1 - b1k} staged, {b1k} "
+            f"kept), B2 launches {b2} ({b2 - b2k} staged, {b2k} kept)")
+        if not v.passed:
+            raise AssertionError(f"chaos: {name} seed {seed} failed: "
+                                 f"{v.failures}")
+        if v.replay_key() != want:
+            raise AssertionError(f"chaos: {name} seed {seed}'s replay key is "
+                                 "not its schedule's passing one")
+        if b1 <= 0 or b2:
+            raise AssertionError(f"chaos: {name} launched B1 {b1}, B2 {b2} "
+                                 "times; expected B1 only")
+        keys.setdefault(name, []).append(v.replay_key())
+        b1_sum += b1
+        b2_sum += b2
+    if any(k != keys["batch-smoke"][0] for k in keys["batch-smoke"]):
+        raise AssertionError("chaos: batch-smoke's two runs of one seed "
+                             "have different replay keys")
+    log(f"chaos [{card}]: batch-smoke's {len(keys['batch-smoke'])} runs of "
+        "seed 31 have one replay key")
+    return b1_sum, b2_sum
+
+
+def phase_race(card: str, reset_counts, gf8_mods, dev=None):
+    """Phase 10c: ``race_run`` of the shrunk ``RACE_RUN`` scenario on
+    ``dev`` (``cuda:0`` unless named) under the perturbed loop with the
+    race tracker armed, a counted window; the verdict passes and the
+    tracker convicts nothing, B1 launches and B2 does not.  Returns the
+    B1 and B2 launches."""
+    import torch
+
+    from ceph_tpu_torch.analysis import racecheck
+
+    dev = dev or torch.device("cuda", 0)
+    name, seed = RACE_RUN
+    reset_counts()
+    t0 = time.perf_counter()
+    verdict, report, digest = racecheck.race_run(name, seed, shrink=True,
+                                                 device=dev)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+    (b1, b1k), (b2, b2k) = oc_launches(gf8_mods)
+    log(f"race run [{card}]: {name} seed {seed} shrunk: "
+        f"{'PASS' if verdict.passed else 'FAIL'}, {verdict.acked_objects} "
+        f"acked objects, faults {json.dumps(verdict.counters)}; tracker "
+        f"{report['reads']} reads, {report['writes']} writes, "
+        f"{report['ticks']} ticks, {len(report['findings'])} convictions; "
+        f"trace {digest[:16]}; wall {wall:.3f} s; B1 launches {b1} "
+        f"({b1k} kept), B2 launches {b2} ({b2k} kept)")
+    if not verdict.passed:
+        raise AssertionError(f"race run: {name} failed: {verdict.failures}")
+    if report["findings"]:
+        raise AssertionError(f"race run: convictions {report['findings']}")
+    if racecheck.TRACKER is not racecheck.NULL_RACE:
+        raise AssertionError("race run: the tracker was left installed")
+    if b1 <= 0 or b2:
+        raise AssertionError(f"race run: launched B1 {b1}, B2 {b2} times; "
+                             "expected B1 only")
+    return b1, b2
 
 
 def card_name() -> str:
@@ -4667,11 +5003,23 @@ def main() -> int:
 
     # the OSD cluster: each pool's I/O, the scrub, the recovery and the
     # backfill its own counted window inside
-    oc_b1, oc_b2 = phase_osd_cluster(card, reset_counts,
-                                     (gf8_cuda, gf8_bytes_cuda))
+    oc_b1, oc_b2, load_s = phase_osd_cluster(card, reset_counts,
+                                             (gf8_cuda, gf8_bytes_cuda))
     b1_launches += oc_b1
     b2_launches += oc_b2
     mark("OSD cluster")
+
+    # the chaos runner and the race run, each scenario on a fresh cluster
+    # and its own counted window (10a, the load window, ran on phase 9's
+    # cluster, its window among phase 9's)
+    for run in (phase_chaos, phase_race):
+        ch_b1, ch_b2 = run(card, reset_counts, (gf8_cuda, gf8_bytes_cuda))
+        b1_launches += ch_b1
+        b2_launches += ch_b2
+    mark("chaos and race runs")
+    log(f"phase clock (so far): phase 10 "
+        f"{load_s + marks[-1][1] - marks[-2][1]:.3f} s (the load window "
+        f"{load_s:.3f} s inside the OSD cluster's)")
 
     phase_one_launch(cauchy, cdata)
     yard_ms = phase_yardstick(card)

@@ -190,7 +190,8 @@ def ec_rule(mod, cmap, size):
 
 def spec_map(pkg, n_hosts, per_host, pools, device=None):
     """Both packages' map from one spec: ``pools`` of (pool_id, type,
-    size, pg_num); erasure pools on an indep rule."""
+    size, pg_num); erasure pools on an indep rule, jerasure k=size-1
+    m=1, with ``min_size`` k+1 as an operator sets it."""
     cmap, rep_rule = pkg.types.build_hierarchy(n_hosts, per_host)
     rules = {}
     for pid, ptype, size, pg_num in pools:
@@ -199,12 +200,15 @@ def spec_map(pkg, n_hosts, per_host, pools, device=None):
     kw = {"device": device} if pkg is PORT else {}
     m = pkg.osd.OSDMap(cmap, **kw)
     for pid, ptype, size, pg_num in pools:
-        rule = rules[size] if ptype == pkg.osd.POOL_TYPE_ERASURE \
-            else rep_rule
+        ec = ptype == pkg.osd.POOL_TYPE_ERASURE
+        profile = {"plugin": "jerasure", "technique": "reed_sol_van",
+                   "k": str(size - 1), "m": "1"} if ec else {}
         m.add_pool(pkg.osd.PGPool(
-            pool_id=pid, type=ptype, size=size, min_size=max(1, size - 1),
-            pg_num=pg_num, pgp_num=pg_num, crush_rule=rule,
-            name=f"p{pid}"))
+            pool_id=pid, type=ptype, size=size,
+            min_size=size if ec else max(1, size - 1),
+            pg_num=pg_num, pgp_num=pg_num,
+            crush_rule=rules[size] if ec else rep_rule,
+            ec_profile=profile, name=f"p{pid}"))
     return m
 
 
@@ -370,8 +374,22 @@ def make_inc(pkg, m, fields):
 MINT_CASES = 14
 
 
+def reference_mint(monkeypatch):
+    """The port's mint with the reference's rule for erasure pools too, a
+    wholesale remap (``Monitor._ec_handoff_mask``, a deliberate
+    difference held to its own computation in
+    test_mint_keeps_undecodable_ec_remaps_acting)."""
+    def wholesale(self, pool, donor, old_raw, new_raw, nonempty):
+        shared = (donor[:, :, None] & (
+            old_raw[:, :, None] == new_raw[:, None, :])).any(axis=(1, 2))
+        return nonempty & donor.any(axis=1) & ~shared
+
+    monkeypatch.setattr(pmon.Monitor, "_ec_handoff_mask", wholesale)
+
+
 @pytest.mark.parametrize("seed", range(MINT_CASES))
-def test_mint_equals_reference(seed):
+def test_mint_equals_reference(seed, monkeypatch):
+    reference_mint(monkeypatch)
     jm, fields = mint_pair(seed)
     pm = port_map(jm)
     jmn = jmon.Monitor(jm, config=REF.Config())
@@ -400,6 +418,67 @@ def test_mint_equals_reference(seed):
     jm.apply_incremental(jinc)
     pm.apply_incremental(pinc)
     assert map_state(pm) == map_state(jm)
+
+
+def _ec_handoff_extras(old, new, inc):
+    """The entries the port's erasure handoff rule adds to the
+    reference's mint, per PG with the reference's scalar ``pg_raw_up``:
+    an erasure PG, no explicit or armed entry, a non-empty new set, and
+    fewer than k (the profile's, below ``min_size`` here) surviving old
+    holders in their own slots while another survives elsewhere; the
+    entry is the old set with the purged members NONE."""
+    def survives(o):
+        return 0 <= o < new.max_osd and new.osd_exists[o]
+
+    out = {}
+    for pid, pool in new.pools.items():
+        if pid not in old.pools or pool.can_shift_osds():
+            continue
+        for seed in range(min(pool.pg_num, old.pools[pid].pg_num)):
+            pgid = josd.PGid(pid, seed)
+            if pgid in inc.new_pg_temp:
+                continue
+            cur = old.pg_temp.get(pgid)
+            if cur is not None and any(survives(o) for o in cur):
+                continue
+            new_raw = list(new.pg_raw_up(pgid))
+            if not [o for o in new_raw if o >= 0]:
+                continue
+            old_raw = list(old.pg_raw_up(pgid))
+            held = [o for o in old_raw if survives(o)]
+            in_place = sum(1 for i, o in enumerate(old_raw)
+                           if survives(o) and i < len(new_raw)
+                           and new_raw[i] == o)
+            if in_place < int(pool.ec_profile["k"]) and \
+                    len(held) > in_place:
+                out[(pid, seed)] = [o if survives(o)
+                                    else ptypes.CRUSH_ITEM_NONE
+                                    for o in old_raw]
+    return out
+
+
+@pytest.mark.parametrize("seed", range(MINT_CASES))
+def test_mint_keeps_undecodable_ec_remaps_acting(seed):
+    """The port's mint (``Monitor._ec_handoff_mask``, ROADMAP §C): the reference's
+    entries, plus the old holders of every erasure PG whose remap leaves
+    fewer than k of them in their slots (``_ec_handoff_extras``), and the
+    minted counter counts both."""
+    jm, fields = mint_pair(seed)
+    pm = port_map(jm)
+    jmn = jmon.Monitor(jm, config=REF.Config())
+    pmn = pmon.Monitor(pm, config=PORT.Config(), device="cpu")
+    jinc, pinc = make_inc(REF, jm, fields), make_inc(PORT, pm, fields)
+    jmn._mint_pg_temp(jinc)
+    pmn._mint_pg_temp(pinc)
+    new = copy.deepcopy(jm)
+    new.apply_incremental(copy.deepcopy(jinc))
+    extras = _ec_handoff_extras(jm, new, jinc)
+    assert plain(pinc.new_pg_temp) == {**plain(jinc.new_pg_temp), **extras}
+    assert not set(extras) & set(plain(jinc.new_pg_temp))
+    assert pmn.perf.get("mon_pg_temp_minted") == \
+        jmn.perf.get("mon_pg_temp_minted") + len(extras)
+    assert pmn.perf.get("mon_pg_temp_swept") == \
+        jmn.perf.get("mon_pg_temp_swept")
 
 
 def test_mint_batched_calls():
@@ -601,7 +680,8 @@ async def run_sequence(pkg, n_mons, seed):
 
 
 @pytest.mark.parametrize("n_mons", [1, 3])
-def test_command_sequence_equals_reference(n_mons):
+def test_command_sequence_equals_reference(n_mons, monkeypatch):
+    reference_mint(monkeypatch)
     ref = run(run_sequence(REF, n_mons, 11))
     port = run(run_sequence(PORT, n_mons, 11))
     for i, (a, b) in enumerate(zip(port[0], ref[0])):

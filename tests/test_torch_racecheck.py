@@ -1,13 +1,14 @@
 """The port's race tracker (``ceph_tpu_torch/analysis/racecheck.py``)
-against ``ceph_tpu``'s: the cases of ``tests/test_racecheck.py`` that need
-no scenario runner.
+against ``ceph_tpu``'s: the cases of ``tests/test_racecheck.py``.
 
 Each case drives both packages' trackers through the same probe sequence
 and compares their findings and reports, without the probe sites and
 stacks (file paths differ between the packages).  The boot case starts a
 cluster of each package with ``race_check_enabled=1`` under its own
-deadline.  The seeded race runs (``race_run``) wait for the port's
-scenario layer.
+deadline.  The seeded race runs (``race_run``) run the port's shrunk
+``batch-smoke`` on ``device="cpu"`` under the perturbed loop: each
+passes on the reference's schedule with no conviction (the reference's
+own race runs are ``tests/test_racecheck.py``'s).
 """
 
 import asyncio
@@ -21,6 +22,7 @@ import ceph_tpu.utils.lockdep as jlockdep
 import ceph_tpu_torch.analysis.racecheck as racecheck
 import ceph_tpu_torch.utils.config as config
 import ceph_tpu_torch.utils.lockdep as lockdep
+from tests._torch_chaos import _port_chaos_reset  # noqa: F401  (fixture)
 from tests.test_torch_cluster import (  # noqa: F401  (fixtures)
     BOUND, PORT, REF, _one_torch_thread, _port_lockdep_reset)
 
@@ -554,3 +556,54 @@ def test_planar_rewind_restores_attrs_and_version():
         return v1_planes, v1_attrs
 
     assert case(PORT) == case(REF)
+
+
+# ------------------------------------------------------- the race runs
+
+
+def test_race_run_unknown_scenario_raises():
+    for rc in (racecheck, jracecheck):
+        with pytest.raises(KeyError):
+            rc.race_run("nope", 0)
+
+
+def _ref_batch_smoke_key(seed: int):
+    import ceph_tpu.chaos.scenario as jscenario
+
+    sc = jscenario.builtin_scenarios()["batch-smoke"]
+    return jscenario.Verdict(
+        name="batch-smoke", seed=seed,
+        schedule=jscenario.build_schedule(sc, seed), passed=True,
+        failures=[]).replay_key()
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("seed", [1, 2])
+def test_race_smoke_batch_seeds(seed):
+    """``tests/test_racecheck.py::test_race_smoke_batch_seeds`` on the
+    port: the shrunk batch-smoke under the perturbed loop with the
+    tracker armed passes with no conviction, the probes flowed, the
+    tracker is restored, and the verdict replays the reference's
+    schedule."""
+    verdict, report, digest = racecheck.race_run(
+        "batch-smoke", seed, shrink=True, device="cpu")
+    assert verdict.passed, (seed, verdict.failures)
+    assert report["findings"] == [], (seed, report["findings"])
+    assert report["reads"] > 0 and report["writes"] > 0
+    assert racecheck.TRACKER is racecheck.NULL_RACE
+    assert isinstance(digest, str) and digest
+    assert verdict.replay_key() == _ref_batch_smoke_key(seed)
+
+
+@pytest.mark.race
+@pytest.mark.chaos
+@pytest.mark.slow
+@pytest.mark.parametrize("scenario", ["batch-smoke", "overload-smoke",
+                                      "smoke"])
+def test_race_full_scenarios(scenario):
+    for seed in (1, 2):
+        verdict, report, _ = racecheck.race_run(scenario, seed,
+                                                device="cpu")
+        assert verdict.passed, (scenario, seed, verdict.failures)
+        assert report["findings"] == [], (scenario, seed,
+                                          report["findings"])
