@@ -466,7 +466,8 @@ class ECBackendMixin:
             # wedge the PG's commit watermark forever
             self._frontier_done(st, eversion, ok=False)
             raise
-        return (reqid, eversion, fut, send_failures, entry)
+        return (reqid, eversion, fut, send_failures, entry,
+                st.interval_epoch)
 
     async def _ec_commit_finish(self, st: PGState, token) -> int:
         """Ack-wait half of an EC write — runs with the PG lock
@@ -477,7 +478,7 @@ class ECBackendMixin:
 
         if isinstance(token, int):
             return token  # already-final result (e.g. -11 undersized)
-        reqid, eversion, fut, send_failures, entry = token
+        reqid, eversion, fut, send_failures, entry, interval = token
         try:
             if fut is not None:
                 try:
@@ -516,6 +517,19 @@ class ECBackendMixin:
         except BaseException:
             self._frontier_done(st, eversion, ok=False)
             raise
+        if st.interval_epoch != interval or st.peer_interval > interval \
+                or self.pgs.get(st.pgid) is not st:
+            # the PG's acting set or primary changed before every
+            # sub-write ack was in, or a newer interval's primary has
+            # already queried this daemon (whose own map may not show
+            # that interval yet): the new interval's peering rules on
+            # this entry (it may rewind it from members that took it),
+            # so an ack now could name a write the PG then rolls back.
+            # Stay un-acked; the client retries against the new acting
+            # set.  (The port's fence for a stale EC primary: the
+            # reference acks here.)
+            self._frontier_done(st, eversion, ok=False)
+            return -110
         if not self._entry_still_logged(st, entry):
             # a concurrent peering round REWOUND this entry (or
             # replaced the log) while our acks were in flight: whatever
@@ -789,11 +803,21 @@ class ECBackendMixin:
         not hold, and peering, which compares heads, would never push
         that object: the member refuses it instead, the op stays
         un-acked, and the primary queues a recovery round that resyncs
-        it (``_ec_commit_finish``)."""
+        it (``_ec_commit_finish``).  A sub-write issued on a map older
+        than the newest interval a peering query announced here
+        (``PGState.peer_interval``) is refused the same way."""
         if msg.entry is None or msg.deadline is None:
             return False
         st = self.pgs.get(msg.pgid)
-        if st is None or msg.entry.version <= st.last_update:
+        if st is None:
+            return False
+        if msg.epoch < st.peer_interval:
+            # issued on a map older than the interval whose peering query
+            # this member already answered (Ceph's can_discard_replica_op):
+            # that round's log choice did not see this entry, so the
+            # write must not complete
+            return True
+        if msg.entry.version <= st.last_update:
             return False
         return st.last_update < msg.entry.prior_version
 

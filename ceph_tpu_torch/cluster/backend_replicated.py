@@ -501,7 +501,11 @@ class ReplicatedBackendMixin:
             # below our own commit watermark — entries acked to clients
             # are not rollbackable, whatever a (possibly stale) primary
             # says
-            if st is not None:
+            if st is not None and (msg.interval is None
+                                   or msg.interval >= st.peer_interval):
+                # ...nor for a primary of an interval older than the one
+                # whose peering query this member answered last (a
+                # revived daemon peering on its pre-crash map)
                 target = pickle.loads(msg.data)
                 if st.last_update > target >= st.last_complete:
                     need = self.rewind_divergent_log(st, target)

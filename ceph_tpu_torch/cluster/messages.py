@@ -108,12 +108,17 @@ class MMonSubscribe(Message):
     what: str = "osdmap"
     addr: Optional[Addr] = None
     since: int = 0  # subscriber's current epoch; 0 = send the full map
+    # the subscriber's refresh number, echoed on the map message that
+    # answers it (0: none), so a refresh waits for its own answer and
+    # not for a push already in flight
+    tid: int = 0
 
 
 @dataclass
 class MOSDMapMsg(Message):
     epoch: int = 0
     osdmap_blob: bytes = b""
+    sub_tid: int = 0  # the MMonSubscribe.tid this answers (0: a push)
 
 
 @dataclass
@@ -124,6 +129,7 @@ class MOSDIncMapMsg(Message):
     prev_epoch: int = 0
     epoch: int = 0
     inc_blobs: List[bytes] = field(default_factory=list)
+    sub_tid: int = 0  # the MMonSubscribe.tid this answers (0: a push)
 
 
 @dataclass
@@ -400,6 +406,10 @@ class MOSDPGPush(Message):
     version: int = 0
     entry: Any = None            # pglog.LogEntry
     xattrs: Dict[str, bytes] = field(default_factory=dict)
+    # op="rewind": the primary's ``PGState.interval_epoch``; a member
+    # refuses a rewind from an interval older than its newest peering
+    # query's (None: no check)
+    interval: Optional[int] = None
 
 
 @dataclass

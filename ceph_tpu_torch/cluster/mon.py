@@ -1022,7 +1022,8 @@ class Monitor(Dispatcher):
             # inbound connections
             self._sub_conns[tuple(msg.addr)] = conn
             covered = await self._send_map(tuple(msg.addr),
-                                           since=msg.since)
+                                           since=msg.since,
+                                           sub_tid=msg.tid)
             # the direct subscribe reply counts as a push: the pusher
             # must not re-send epochs the refresh just covered
             ps = self._push_state.setdefault(tuple(msg.addr), {})
@@ -1796,12 +1797,14 @@ class Monitor(Dispatcher):
                 self._sub_conns.pop(tuple(addr), None)
         await self.messenger.send_message(msg, addr)
 
-    async def _send_map(self, addr: Addr, since: int = 0) -> int:
+    async def _send_map(self, addr: Addr, since: int = 0,
+                        sub_tid: int = 0) -> int:
         """Send incrementals covering (since, current] when the window
         has them AND the chain stays under mon_osd_map_max_incs, else
         the full map (reference OSDMonitor send_incremental; skipping
         to a full map bounds both ends of a churn burst).  Returns the
-        epoch the message covered."""
+        epoch the message covered.  ``sub_tid`` names the subscribe
+        this answers."""
         epoch = self.osdmap.epoch
         if 0 < since <= epoch:
             chain = []
@@ -1817,7 +1820,8 @@ class Monitor(Dispatcher):
                 self.perf.inc("mon_inc_maps_sent")
                 await self._map_push(
                     M.MOSDIncMapMsg(prev_epoch=since, epoch=epoch,
-                                    inc_blobs=chain), addr)
+                                    inc_blobs=chain, sub_tid=sub_tid),
+                    addr)
                 return epoch
             if len(chain) >= limit:
                 # the subscriber fell outside the bounded delta window
@@ -1826,7 +1830,8 @@ class Monitor(Dispatcher):
         self.perf.inc("mon_full_maps_sent")
         blob = pickle.dumps(self.osdmap)
         await self._map_push(
-            M.MOSDMapMsg(epoch=epoch, osdmap_blob=blob), addr)
+            M.MOSDMapMsg(epoch=epoch, osdmap_blob=blob, sub_tid=sub_tid),
+            addr)
         return epoch
 
     async def _tick(self) -> None:

@@ -77,6 +77,10 @@ class Objecter(Dispatcher):
             subscribe_since=lambda: self.osdmap.epoch if self.osdmap else 0)
         self.osdmap: Optional[OSDMap] = None
         self._map_event = asyncio.Event()
+        # _refresh_map's subscribes: the last one sent, and the newest
+        # one whose answer has been applied
+        self._sub_tid = 0
+        self._sub_acked = 0
         self._tid = 0
         self._trace_seq = 0
         self._inflight: Dict[Tuple[str, int], asyncio.Future] = {}
@@ -226,6 +230,7 @@ class Objecter(Dispatcher):
             if self.osdmap is None or newmap.epoch >= self.osdmap.epoch:
                 self.osdmap = newmap
                 self._schedule_relinger()
+            self._sub_acked = max(self._sub_acked, msg.sub_tid)
             self._map_event.set()
             return True
         if isinstance(msg, M.MWatchNotify):
@@ -238,15 +243,19 @@ class Objecter(Dispatcher):
                     m.apply_incremental(pickle.loads(blob))
                 if msg.inc_blobs:
                     self._schedule_relinger()
+                self._sub_acked = max(self._sub_acked, msg.sub_tid)
                 self._map_event.set()
             elif m is not None and msg.epoch <= m.epoch:
+                self._sub_acked = max(self._sub_acked, msg.sub_tid)
                 self._map_event.set()  # already current
             else:
-                # gap: resync from our epoch
+                # gap: resync from our epoch (a refresh's answer stays
+                # owed: the resync carries its number)
                 await self._mon_send(
                     M.MMonSubscribe(what="osdmap",
                                     addr=self.messenger.my_addr,
-                                    since=m.epoch if m else 0))
+                                    since=m.epoch if m else 0,
+                                    tid=msg.sub_tid))
             return True
         if isinstance(msg, M.MOSDOpReplyBatch):
             # scatter a reply tick per item: each MOSDOpReply inside
@@ -341,15 +350,27 @@ class Objecter(Dispatcher):
         # One silent window must not fail the caller (a pool_create
         # racing a leader failover saw exactly this): hunt to the next
         # mon and re-subscribe before giving up.
+        # Returns once the mon's answer to THIS subscribe is applied, so
+        # the map is at least the mon's epoch when it answered: a push
+        # already in flight (an older epoch) does not end the wait.
+        # (The reference returns on any map message.)
+        loop = asyncio.get_event_loop()
         for attempt in range(3):
+            self._sub_tid += 1
+            tid = self._sub_tid
             self._map_event.clear()
             await self._mon_send(
                 M.MMonSubscribe(what="osdmap",
                                 addr=self.messenger.my_addr,
                                 since=self.osdmap.epoch
-                                if self.osdmap else 0))
+                                if self.osdmap else 0, tid=tid))
+            deadline = loop.time() + 4
             try:
-                await asyncio.wait_for(self._map_event.wait(), timeout=4)
+                while self._sub_acked < tid:
+                    self._map_event.clear()
+                    await asyncio.wait_for(
+                        self._map_event.wait(),
+                        timeout=max(0.0, deadline - loop.time()))
                 return
             except asyncio.TimeoutError:
                 self._hunt()

@@ -280,6 +280,11 @@ class OSDDaemon(PGLogMixin, ClientOpsMixin, ReplicatedBackendMixin,
         import secrets as _secrets
 
         self.boot_instance = _secrets.randbits(63)
+        # the epoch of the first map that shows this daemon up at its own
+        # address: until it lands, the map this daemon peers with is one
+        # from before its boot (a superblock resume), and a PG it thinks
+        # it leads may have passed through intervals it never saw
+        self._up_epoch: Optional[int] = None
         # watch/notify state: (pgid, oid) -> {(watcher, cookie): conn}
         # (reference Watch/Notify on PrimaryLogPG)
         self._watchers: Dict[Tuple, Dict[Tuple[str, int], Connection]] = {}
@@ -720,6 +725,8 @@ class OSDDaemon(PGLogMixin, ClientOpsMixin, ReplicatedBackendMixin,
                 for oid in self._list_pg_objects(msg.pgid)
             }
             st = self.pgs.get(msg.pgid)
+            if st is not None and msg.interval > st.peer_interval:
+                st.peer_interval = msg.interval
             await self._reply_osd(conn, msg, MOSDPGQueryReply(
                 pgid=msg.pgid, objects=objects,
                 info=st.info() if st else None,
@@ -1277,6 +1284,15 @@ class OSDDaemon(PGLogMixin, ClientOpsMixin, ReplicatedBackendMixin,
             await self._mon_send(M.MOSDBoot(osd_id=self.osd_id,
                                             addr=self.messenger.my_addr,
                                             instance=self.boot_instance))
+        if self._up_epoch is None and self.osd_id < newmap.max_osd and \
+                newmap.osd_up[self.osd_id] and \
+                newmap.osd_addrs.get(self.osd_id) == \
+                tuple(self.messenger.my_addr or ()):
+            # going down and up is an interval change for every PG this
+            # daemon holds, whatever acting sets the maps it skipped had
+            self._up_epoch = newmap.epoch
+            for st in self.pgs.values():
+                st.interval_epoch = max(st.interval_epoch, newmap.epoch)
         changed = self._advance_pgs()
         if changed and not self._stopped:
             if self.flight:
@@ -1407,7 +1423,8 @@ class OSDDaemon(PGLogMixin, ClientOpsMixin, ReplicatedBackendMixin,
                         changed = True
                         self.store.queue_transaction(
                             Transaction().create_collection(_coll(pgid)))
-                        st = PGState(pgid, up, acting, actp)
+                        st = PGState(pgid, up, acting, actp,
+                                     interval_epoch=m.epoch)
                         # resumed parent collections split BEFORE their
                         # children (lower seeds iterate first) load meta
                         if not pool.is_erasure():
@@ -1442,6 +1459,8 @@ class OSDDaemon(PGLogMixin, ClientOpsMixin, ReplicatedBackendMixin,
                             changed = True
                             if actp == self.osd_id:
                                 to_peer.add(pgid)
+                        if old.acting != acting or old.primary != actp:
+                            old.interval_epoch = m.epoch
                         old.up, old.acting, old.primary = up, acting, actp
                 elif old is not None:
                     del self.pgs[pgid]

@@ -109,6 +109,16 @@ class PGState:
     # PG_INCONSISTENT / OSD_SCRUB_ERRORS health flow: raise while
     # non-empty, clear when the repairs land.
     inconsistent: set = field(default_factory=set)
+    # the map epoch at which this OSD saw the PG's acting set or primary
+    # last change (reference same_interval_since).  A primary's EC
+    # client write carries it and acks only if it is still current when
+    # every sub-write ack is in (``_ec_commit_finish``).
+    interval_epoch: int = 0
+    # the newest interval a peering query for this PG announced to this
+    # member: a client sub-write of an older interval is refused, so an
+    # old primary that has not seen the new map yet cannot complete a
+    # write that the new primary's peering already ruled out
+    peer_interval: int = 0
 
     def frontier_acked(self, seq: int) -> bool:
         """Is seq a RESOLVED (fully acked) frontier entry that the
@@ -126,6 +136,8 @@ class PGState:
 @dataclass
 class MOSDPGQuery(M.Message):
     pgid: Optional[PGid] = None
+    # the querying primary's ``PGState.interval_epoch`` (0: none)
+    interval: int = 0
 
 
 @dataclass

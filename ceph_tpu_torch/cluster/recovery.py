@@ -101,8 +101,10 @@ class RecoveryMixin:
         Query/Notify, PG.h RecoveryMachine GetInfo)."""
         key = ("pgq", str(pgid), osd)
         fut = self._make_waiter(key, 1)
+        st = self.pgs.get(pgid)
         try:
-            await self._send_osd(osd, MOSDPGQuery(pgid=pgid))
+            await self._send_osd(osd, MOSDPGQuery(
+                pgid=pgid, interval=st.interval_epoch if st else 0))
             acc = await asyncio.wait_for(fut, timeout=2.0)
             return acc[0][1]
         except (asyncio.TimeoutError, ConnectionError):
@@ -175,6 +177,10 @@ class RecoveryMixin:
 
     async def _recover_pg_locked(self, st: PGState) -> bool:
         m = self.osdmap
+        # the interval this round's queries announce: a round that
+        # outlives it (a map lands while the members answer) rewinds
+        # nobody, since its rule was made for an older interval
+        interval, booted = st.interval_epoch, self._up_epoch is not None
         pool = m.pools[st.pgid.pool]
         members = [o for o in st.acting
                    if o not in (self.osd_id, CRUSH_ITEM_NONE)]
@@ -214,6 +220,23 @@ class RecoveryMixin:
             for oid in need:  # record lost: re-pull the auth copy
                 complete &= await self._recover_ec_object(
                     pool, st, oid, targets=[self.osd_id])
+        if pool.is_erasure() and auth != self.osd_id and \
+                infos[auth].last_update > st.last_update:
+            # a stale primary syncs from the authoritative log, decoding
+            # each object from the members' shards: a member past the
+            # authoritative head holds un-acked generations there, so it
+            # rewinds first, or the decode mixes generations and the
+            # primary never syncs (the rewind further down waits for
+            # the primary to hold the head).  The reference skips this.
+            # Only a daemon whose map shows its own boot does it: one
+            # still on its pre-crash map may not lead the PG at all.
+            ahead = [o for o in members if o in infos
+                     and infos[o].last_update > auth_head] if booted else []
+            if ahead and (st.interval_epoch != interval or
+                          not await self._rewind_members(
+                              st, ahead, auth_head, infos, logs,
+                              inventories)):
+                return False
         if auth != self.osd_id and \
                 infos[auth].last_update > st.last_update:
             complete &= await self._sync_self_from(
@@ -235,6 +258,9 @@ class RecoveryMixin:
             peer_lu = infos[osd].last_update
             if pool.is_erasure() and peer_lu > st.last_update and \
                     st.last_update >= auth_head:
+                if st.interval_epoch != interval:
+                    complete = False
+                    continue
                 # divergent member: instruct it to rewind to our head
                 # (it holds a superset of our log, so after the rewind
                 # it is exactly current — nothing to push).  Guarded on
@@ -244,7 +270,8 @@ class RecoveryMixin:
                 try:
                     await self._send_osd(osd, M.MOSDPGPush(
                         pgid=st.pgid, op="rewind",
-                        data=pickle.dumps(st.last_update)))
+                        data=pickle.dumps(st.last_update),
+                        interval=st.interval_epoch))
                 except ConnectionError:
                     complete = False
                 continue
@@ -367,6 +394,33 @@ class RecoveryMixin:
                 complete = False
         self.perf.inc("osd_pg_recoveries")
         return complete
+
+    async def _rewind_members(self, st: PGState, members, head,
+                              infos: Dict[int, PGInfo],
+                              logs: Dict[int, PGLog],
+                              inventories: Dict[int, Dict[str, int]]
+                              ) -> bool:
+        """Tell each of ``members`` to rewind its log to ``head``, then
+        re-query them into ``infos``/``logs``/``inventories``.  True when
+        every one now reports ``head`` or less; a member whose commit
+        watermark is past ``head`` refuses (its entries were acked)."""
+        for osd in members:
+            try:
+                await self._send_osd(osd, M.MOSDPGPush(
+                    pgid=st.pgid, op="rewind", data=pickle.dumps(head),
+                    interval=st.interval_epoch))
+            except ConnectionError:
+                return False
+        for osd in members:
+            reply = await self._query_pg(osd, st.pgid)
+            if reply is None:
+                return False
+            infos[osd] = reply.info or PGInfo()
+            logs[osd] = reply.log or PGLog()
+            inventories[osd] = reply.objects or {}
+            if infos[osd].last_update > head:
+                return False
+        return True
 
     def _queue_recovery_retry(self, st: PGState) -> None:
         """Arm ONE delayed re-peering attempt for this PG (capped

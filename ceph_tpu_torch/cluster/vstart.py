@@ -26,7 +26,7 @@ from ceph_tpu_torch.cluster.osd import OSDDaemon
 from ceph_tpu_torch.crush.types import build_hierarchy
 from ceph_tpu_torch.osdmap.osdmap import OSDMap
 from ceph_tpu_torch.utils import Config
-from ceph_tpu_torch.utils.device import resolve_device_index
+from ceph_tpu_torch.utils.device import resolve_device_index, warm_device
 
 
 class PlacementCache:
@@ -575,6 +575,9 @@ async def start_cluster(n_osds: int = 3, osds_per_host: int = 1,
     import pickle as _pickle
 
     device = resolve_device_index(device)
+    # a process's first I/O must not wait on nvcc or cuBLAS's load
+    await asyncio.get_running_loop().run_in_executor(
+        None, warm_device, device)
 
     config = config or _fast_config()
     if getattr(config, "race_check_enabled", 0):

@@ -1,4 +1,4 @@
-"""graft-load: deterministic traffic driver + SLO judge.
+"""graft-load: deterministic traffic driver + SLO judge + soak.
 
 Counterpart of ``ceph_tpu/load/``:
 
@@ -8,12 +8,15 @@ Counterpart of ``ceph_tpu/load/``:
                 multiplexed over a bounded objecter session pool
 - ``slo``     — gate verdicts computed from exported telemetry only
                 (Prometheus scrape, mon health, admin-socket dumps)
+- ``ramp``    — saturation search -> ``LOAD_torch_r*.json`` artifact
+- ``soak``    — sustained traffic x seeded chaos fault schedules,
+                judged by durability + frontier invariants
 
-The reference's saturation search (``ramp``) and soak runner (``soak``)
-come later.  Submodules are imported directly (``from
-ceph_tpu_torch.load import driver``); this package init stays
-import-free because chaos/scenario imports ``load.dist`` — pulling
-driver here would cycle back into chaos.
+The CLI over them is ``python -m ceph_tpu_torch.tools.load``.
+Submodules are imported directly (``from ceph_tpu_torch.load import
+driver``); this package init stays import-free because chaos/scenario
+imports ``load.dist`` — pulling driver/soak here would cycle back into
+chaos.
 """
 
-__all__ = ["dist", "driver", "slo"]
+__all__ = ["dist", "driver", "slo", "ramp", "soak"]

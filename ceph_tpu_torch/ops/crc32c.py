@@ -218,16 +218,23 @@ def _message_bitmat(block: int) -> np.ndarray:
     """(32, 8*block) GF(2) matrix L with update(0, m) = L @ bits(m).
 
     Column (p, i): contribution of bit i of byte p, i.e.
-    A_1^(block-1-p) . tbl[1 << i]."""
+    A_1^(block-1-p) . tbl[1 << i].  Built over the bits of ``block``,
+    most significant first: an r-byte matrix M(r) doubles as
+    M(2r) = [A_1^r M(r) | M(r)] and grows a byte as
+    M(r+1) = [A_1 M(r) | tbl[1 << i]], so the cost is O(block) vector
+    work and O(log block) 32x32 products, not a 32x32 product per byte
+    (a first write of a new length waits on this)."""
     t_cols = np.array([CRC_TABLE[1 << i] for i in range(8)], dtype=np.uint32)
-    m = np.zeros((32, 8 * block), dtype=np.uint8)
-    p_op = _identity()
-    for p in range(block - 1, -1, -1):
-        cols = np.array([_mat_vec(p_op, int(c)) for c in t_cols], dtype=np.uint32)
-        bits = (cols[None, :] >> np.arange(32)[:, None]) & 1
-        m[:, 8 * p: 8 * p + 8] = bits.astype(np.uint8)
-        p_op = _mat_mat(_A1, p_op)
-    return m
+    cols = np.zeros(0, dtype=np.uint32)   # columns (p, i) of M(r), p-major
+    power = _identity()                   # A_1^r
+    for bit in bin(block)[2:]:
+        cols = np.concatenate([_mat_mat(power, cols), cols])
+        power = _mat_mat(power, power)
+        if bit == "1":
+            cols = np.concatenate([_mat_mat(_A1, cols), t_cols])
+            power = _mat_mat(_A1, power)
+    return ((cols[None, :] >> np.arange(32, dtype=np.uint32)[:, None])
+            & 1).astype(np.uint8)
 
 
 @functools.lru_cache(maxsize=16)

@@ -36,3 +36,19 @@ def run_on(device: torch.device, fn, *args):
         with torch.cuda.device(device):
             return fn(*args)
     return fn(*args)
+
+
+def warm_device(device: torch.device) -> None:
+    """Make ready on a CUDA ``device`` what the first device op of a
+    process would otherwise wait for: the kernels' build and load, the
+    card's context, and cuBLAS (the float32 matmuls of device crc32c and
+    of the plain GF(2) maps).  A no-op for any other device."""
+    if device.type != "cuda":
+        return
+    from ceph_tpu_torch.ops import _build
+
+    _build.build_all()
+    with torch.cuda.device(device):
+        a = torch.ones((8, 8), device=device)
+        torch.matmul(a, a)
+        torch.cuda.synchronize(device)

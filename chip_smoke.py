@@ -185,9 +185,9 @@ non-zero if any of them fails:
    tools/ec_sidecar}.py``): ``tools/rados.bench`` at Ceph's defaults
    (4 MiB blocks, 16 in flight) for 3 s of ``write`` and 3 s of ``seq``
    on the ISA pool, every read compared with the block; an RBD image of
-   64 MiB on the ISA pool at RBD's default layout (4 MiB objects,
-   ``stripe_unit`` the object size, ``stripe_count`` 1): 16 sequential
-   4 MiB writes with 8 in flight, 32 random 4 KiB overwrites of distinct
+   32 MiB on the ISA pool at RBD's default layout (4 MiB objects,
+   ``stripe_unit`` the object size, ``stripe_count`` 1): 8 sequential
+   4 MiB writes with 8 in flight, 16 random 4 KiB overwrites of distinct
    blocks from the seed (fio's ``randwrite 4k``), a full read against a
    host model of the image, a snapshot and its full read;
    ``Cluster.start_mds`` with its metadata on the replicated pool and
@@ -211,8 +211,9 @@ non-zero if any of them fails:
    start and create times, the sidecar's batches and the driver's rate,
    the scrub and the longest loop block of each window;
 10. chaos and load (``ceph_tpu_torch/chaos/{daemons,invariants,scenario,
-   integrity}.py``, ``load/{dist,driver,slo}.py``,
-   ``analysis/racecheck.race_run``): (a) last on phase 9's cluster,
+   integrity}.py``, ``load/{dist,driver,slo,ramp,soak}.py``,
+   ``tools/load.py``, ``analysis/racecheck.race_run``): (a) last on
+   phase 9's cluster,
    ``LoadContext.create`` of the library's ``read-heavy`` spec at 256
    PGs (jerasure reed_sol_van k2m1, 4096 B payloads, zipf 1.2 over 32
    objects, 64 clients at 1.2 ops/s for 2.5 s over four sessions) and
@@ -221,17 +222,32 @@ non-zero if any of them fails:
    client window not collapsed below 2, health clear, no ack past its
    deadline); every object the window left is read back (a tracked one
    must hold a whole payload the window attempted) and every shard of it
-   held to the plain CPU codec's; (b) ``run_scenario`` of the library's
+   held to the plain CPU codec's, and each failed op's error, errno,
+   verb, object and PG printed; (b) ``run_scenario`` of the library's
    ``batch-smoke`` twice at seed 31, ``thrash-ec-midwrite`` and
    ``integrity_scenarios()["bitrot-under-load"]``, each on a fresh
    cluster on ``cuda:0``: every verdict passes (its durability invariant
    reads back every acked object and checks its crc), each replay key is
    the passing one of its schedule, and the two ``batch-smoke`` keys are
    equal; (c) ``race_run("batch-smoke", SEED, shrink=True)`` on the card:
-   the verdict passes and the race tracker convicts nothing.  Printed
-   beside the card: the gate rows, the offered and acked ops, each
-   scenario's schedule length, the faults that fired, the acked objects,
-   the heal, converge and invariant times and the wall time;
+   the verdict passes and the race tracker convicts nothing; (d)
+   ``ramp`` of ``read-heavy`` at 256 PGs at scales 1 and 2 on a fresh
+   cluster on the card, its PGs clean before the first step, its
+   artifact written to a temporary directory:
+   the trust stamps, a knee, and the card's name and power limit in its
+   ``card`` field; (e) ``run_soak`` of ``soak-mixed-crash`` at seed 17
+   (jerasure reed_sol_van k2m1 on FileStore, 5 % batch-item drops,
+   ``tick_post_encode`` and ``commit_mid_fanout`` crash points during
+   writes, each followed by a revive): the verdict passes, a crash point
+   fired, objects were acked and the schedule is ``build_schedule``'s at
+   seed 17; (f) ``python -m ceph_tpu_torch.tools.load run --spec
+   smoke-micro --seed 3 --no-postmortem`` in a subprocess on the card
+   exits 0 with ``ALL GATES PASS``.  (d), (e) and (f) each run under
+   their own bound (60, 90 and 45 s).  Printed beside the card: the gate
+   rows, the offered and acked ops, each scenario's schedule length, the
+   faults that fired, the acked objects, the heal, converge and invariant
+   times and the wall time, each ramp step's offered and acked ops/s, p99
+   and verdict, and the knee;
 11. one launch: a torch.profiler trace of one cauchy ``encode_planar``
    call shows exactly one device kernel, B2's staged kernel, and no
    ``pack_blocks_kernel``;
@@ -273,8 +289,9 @@ the client windows: the ISA pool's launches B1 and not B2, the cauchy
 pool's B2 and not B1, the replicated pool's neither; rados bench and RBD
 B1 and not B2, CephFS B2 and not B1, RGW, the sidecar's ISA driver and
 the client scrub neither, the sidecar's cauchy requests B2 and not B1;
-every launch staged.  Phase 10's load window (among phase 9's) and each
-scenario of (b) and (c) are main paths too: B1 and not B2.  Before the
+every launch staged.  Phase 10's load window (among phase 9's), each
+scenario of (b) and (c), the ramp (d) and the soak (e) are main paths
+too: B1 and not B2; (f) runs a replicated pool in its own process.  Before the
 last lines, one ``phase clock`` line a phase gives its seconds.  The last
 lines are the card's name and power limit, one JSON object describing each
 kernel (B1's and B2's launches summed over every main path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -283,8 +300,10 @@ prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
+import os
 import pickle
 import statistics
 import subprocess
@@ -3468,11 +3487,14 @@ def oc_launches(gf8_mods):
 
 CW_BENCH_S = 3.0                # rados bench seconds per mode (write, seq)
 CW_BLOCK = 4 << 20              # rados bench's default block
-CW_RBD_SIZE = 64 << 20          # RBD's default layout: 4 MiB objects,
+CW_RBD_SIZE = 32 << 20          # RBD's default layout: 4 MiB objects,
 CW_RBD_OBJECT = 4 << 20         # stripe_unit = object size, stripe_count 1
+                                # (64 MiB cut to 32 to keep phase 9 in
+                                # its bound on a slow host)
 CW_RBD_DEPTH = 8                # 4 MiB writes in flight
-CW_RBD_SMALL = 32               # fio randwrite 4k: 32 distinct blocks
-                                # (64 took 102.5 s of a 782 s call)
+CW_RBD_SMALL = 16               # fio randwrite 4k: 16 distinct blocks
+                                # (64 took 102.5 s of a 782 s call; 32
+                                # took 47.8 s of a 750 s one)
 CW_RBD_SMALL_DEPTH = 8          # in flight (32 timed ops out at 120 s)
 CW_FS_FILES = 8                 # CephFS files of 4 MiB on the cauchy pool
 CW_FS_FILE = 4 << 20
@@ -4476,6 +4498,18 @@ CH_RUNS = (("batch-smoke", 31), ("batch-smoke", 31),
            ("thrash-ec-midwrite", SEED), ("bitrot-under-load", SEED))
 CH_BOUND_S = 150.0              # one scenario, boot to teardown
 RACE_RUN = ("batch-smoke", SEED)
+RAMP_SCALES = (1, 2)            # 10d: the offered rate, then twice it
+RAMP_BOUND_S = 60.0
+SOAK_RUN = ("soak-mixed-crash", 17)   # the reference's soak test's seed
+SOAK_BOUND_S = 90.0
+# 10f: the port's load CLI on the card, as a user runs it, each command in
+# a process of its own: the replicated smoke-micro, then the EC read-heavy,
+# whose first window is its process's first work on the card
+LOAD_CLIS = (("run", "--spec", "smoke-micro", "--seed", "3",
+              "--no-postmortem"),
+             ("run", "--spec", "read-heavy", "--seed", "3",
+              "--no-postmortem"))
+LOAD_CLI_BOUND_S = 45.0         # each command
 
 
 def lw_spec():
@@ -4541,7 +4575,9 @@ async def load_window(cluster, client, dev, workers, stripe_unit, out,
     before = osd_sums()
     reset()
     t1 = time.perf_counter()
-    result, report = await run_load(spec, SEED, ctx=ctx, record_acked=True)
+    with lw_failed_ops() as failed:
+        result, report = await run_load(spec, SEED, ctx=ctx,
+                                        record_acked=True)
     out["t"]["load run"] = time.perf_counter() - t1
     window("load")
     osd_counts = {n: v - before[n] for n, v in osd_sums().items()}
@@ -4552,7 +4588,10 @@ async def load_window(cluster, client, dev, workers, stripe_unit, out,
                    "read_misses": result.read_misses,
                    "late": len(result.late_acks),
                    "elapsed": result.elapsed, "plan_key": result.plan_key,
-                   "osd": osd_counts}
+                   "osd": osd_counts,
+                   "failed": [(kind, errno, verb, oid, str(
+                       client.objecter.object_pgid(ctx.pool, oid)))
+                              for kind, errno, verb, oid in failed]}
     if not report.passed:
         raise AssertionError(
             f"load window: SLO gates failed {report.failures()}; "
@@ -4585,6 +4624,49 @@ async def load_window(cluster, client, dev, workers, stripe_unit, out,
     await ctx.close()
 
 
+LW_VERBS = ("write_full", "write", "read", "append", "remove")
+
+
+@contextlib.contextmanager
+def lw_failed_ops():
+    """Record each failed client op of the load window as (error,
+    errno, IoCtx method, object): the driver counts its errors by type
+    only.  The errno is the exception's, else the OSD's result code that
+    the client's message carries (``read(obj0) -> -5: ...``), with the
+    OSD's reason after it.  A read or remove of an absent object is a
+    miss, not an error, as the driver counts it."""
+    import re
+
+    from ceph_tpu_torch.cluster.objecter import IoCtx
+
+    failed = []
+    real = {name: getattr(IoCtx, name) for name in LW_VERBS}
+
+    def wrap(name, fn):
+        async def call(self, oid, *args, **kwargs):
+            try:
+                return await fn(self, oid, *args, **kwargs)
+            except FileNotFoundError:
+                raise
+            except (IOError, OSError, TimeoutError) as e:
+                code = re.search(r"-> (-?\d+)(?:: (.*))?", str(e))
+                errno = e.errno if e.errno is not None else (
+                    int(code.group(1)) if code else None)
+                why = (code.group(2) or "")[:80] if code else str(e)[:80]
+                failed.append((f"{type(e).__name__} {why}".strip(), errno,
+                               name, oid))
+                raise
+        return call
+
+    for name, fn in real.items():
+        setattr(IoCtx, name, wrap(name, fn))
+    try:
+        yield failed
+    finally:
+        for name, fn in real.items():
+            setattr(IoCtx, name, fn)
+
+
 def lw_log(out, card: str) -> None:
     """Phase 10a's lines: the gates, the offered and acked ops."""
     res, t = out["load"], out["t"]
@@ -4602,7 +4684,8 @@ def lw_log(out, card: str) -> None:
         f"{LW_PG_NUM} PGs): offered {res['offered']} ops, acked "
         f"{res['acked']} {json.dumps(res['completed'], sort_keys=True)}, "
         f"errors {json.dumps(res['errors'], sort_keys=True)}, read misses "
-        f"{res['read_misses']}, late acks {res['late']}, OSD counts "
+        f"{res['read_misses']}, late acks {res['late']}, failed ops "
+        f"(error, errno, verb, object, PG) {res['failed']}, OSD counts "
         f"{json.dumps(res['osd'], sort_keys=True)}; "
         f"{res['acked'] / max(t['load run'], 1e-9):.3f} acked ops/s over "
         f"the run's {t['load run']:.3f} s ({res['elapsed']:.3f} s between "
@@ -4620,13 +4703,13 @@ class ChaosClock:
 
     SEAMS = ("heal_cluster", "_converge", "judge_invariants")
 
-    def __init__(self, mod, dev):
+    def __init__(self, mod, dev, seams=SEAMS):
         self.mod, self.dev, self.t = mod, dev, {}
-        self.real = {n: getattr(mod, n) for n in self.SEAMS}
+        self.real = {n: getattr(mod, n) for n in seams}
 
     def __enter__(self):
-        for name in self.SEAMS:
-            setattr(self.mod, name, self._timed(name, self.real[name]))
+        for name, fn in self.real.items():
+            setattr(self.mod, name, self._timed(name, fn))
         return self
 
     def __exit__(self, *exc):
@@ -4749,6 +4832,148 @@ def phase_race(card: str, reset_counts, gf8_mods, dev=None):
         raise AssertionError(f"race run: launched B1 {b1}, B2 {b2} times; "
                              "expected B1 only")
     return b1, b2
+
+
+def phase_ramp(card: str, reset_counts, gf8_mods, dev=None):
+    """Phase 10d: ``ramp`` of ``lw_spec()`` (``read-heavy`` at 256 PGs) at
+    ``RAMP_SCALES`` on ``dev`` (``cuda:0`` unless named), called as a user
+    calls it (it boots its own cluster), a counted window under
+    ``RAMP_BOUND_S``; the artifact goes to a temporary directory and reads
+    back as written.  It carries the reference's trust stamps and the
+    card's name and power limit, and a step passed every gate (the knee).
+    B1 launches, B2 does not.  Returns the B1 and B2 launches."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.load import ramp as rampmod
+
+    dev = dev or torch.device("cuda", 0)
+    spec = lw_spec()
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ramp_") as tmp:
+        doc = asyncio.run(asyncio.wait_for(rampmod.ramp(
+            spec, SEED, scales=RAMP_SCALES, tmpdir=tmp, device=dev),
+            RAMP_BOUND_S))
+        path = rampmod.write_artifact(
+            doc, out=os.path.join(tmp, f"{rampmod.ARTIFACT_PREFIX}01.json"))
+        with open(path) as f:
+            if json.load(f) != json.loads(json.dumps(doc)):
+                raise AssertionError("ramp: the artifact does not read "
+                                     "back as written")
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+    (b1, b1k), (b2, b2k) = oc_launches(gf8_mods)
+    for step in doc["steps"]:
+        acked = step["acked_ops_scraped"]
+        log(f"ramp [{card}]: {spec.name} at {spec.pg_num} PGs, scale "
+            f"{step['scale']:g}: offered {step['offered_ops_s']} ops/s "
+            f"({step['offered_ops']} ops), acked "
+            f"{'-' if acked is None else f'{acked / spec.duration:.3f}'} "
+            f"ops/s (scraped), p99 {step['p99_ms']} ms, "
+            f"{'ALL PASS' if step['passed'] else 'FAIL ' + ','.join(g['gate'] for g in step['failed_gates'])}")
+    for line in rampmod.format_table(doc).splitlines():
+        log(f"ramp [{card}]: {line}")
+    log(f"ramp [{card}]: artifact card {doc['card']!r}; wall {wall:.3f} s "
+        f"of its {RAMP_BOUND_S:g} s bound; B1 launches {b1} ({b1k} kept), "
+        f"B2 launches {b2} ({b2k} kept)")
+    stamps = {k: doc[k] for k in ("mode", "vs_baseline", "session_only",
+                                  "load_sensitive_host")}
+    if stamps != {"mode": "cluster_vstart", "vs_baseline": None,
+                  "session_only": True, "load_sensitive_host": True}:
+        raise AssertionError(f"ramp: trust stamps {stamps}")
+    if doc["knee"] is None:
+        raise AssertionError("ramp: no step passed every gate")
+    want_card = card if dev.type == "cuda" else "cpu"
+    if doc["card"] != want_card:
+        raise AssertionError(f"ramp: the artifact names {doc['card']!r}, "
+                             f"not {want_card!r}")
+    if b1 <= 0 or b2:
+        raise AssertionError(f"ramp: launched B1 {b1}, B2 {b2} times; "
+                             "expected B1 only")
+    return b1, b2
+
+
+def phase_soak(card: str, reset_counts, gf8_mods, dev=None):
+    """Phase 10e: ``run_soak`` of ``SOAK_RUN`` on a fresh cluster on
+    ``dev`` (``cuda:0`` unless named), a counted window under
+    ``SOAK_BOUND_S``: the reference's soak test's checks (the verdict
+    passes, a crash point fired, objects were acked, the schedule is the
+    seed's).  B1 launches, B2 does not.  Returns the B1 and B2
+    launches."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.chaos.scenario import build_schedule
+    from ceph_tpu_torch.load import soak as soak_mod
+
+    dev = dev or torch.device("cuda", 0)
+    name, seed = SOAK_RUN
+    sk = soak_mod.builtin_soaks()[name]
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_soak_") as tmp, \
+            ChaosClock(soak_mod, dev, ("heal_cluster", "wait_converged",
+                                       "judge_invariants")) as clock:
+        v = asyncio.run(asyncio.wait_for(soak_mod.run_soak(
+            sk, seed, tmpdir=tmp, device=dev), SOAK_BOUND_S))
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+    (b1, b1k), (b2, b2k) = oc_launches(gf8_mods)
+    log(f"soak [{card}]: {name} seed {seed}: "
+        f"{'PASS' if v.passed else 'FAIL'}, schedule of {len(v.schedule)} "
+        f"events, faults fired {json.dumps(dict(sorted(v.counters.items())))}"
+        f", {v.acked_objects} acked objects; heal "
+        f"{clock.t.get('heal_cluster', 0.0):.3f} s, converge after it "
+        f"{clock.t.get('wait_converged', 0.0):.3f} s, invariants "
+        f"{clock.t.get('judge_invariants', 0.0):.3f} s; wall {wall:.3f} s "
+        f"of its {SOAK_BOUND_S:g} s bound; B1 launches {b1} ({b1k} kept), "
+        f"B2 launches {b2} ({b2k} kept)")
+    if not v.passed:
+        raise AssertionError(f"soak: {name} seed {seed} failed: "
+                             f"{v.failures}")
+    if v.counters.get("crash_points_fired", 0) < 1:
+        raise AssertionError("soak: no crash point fired")
+    if v.acked_objects <= 0:
+        raise AssertionError("soak: no object was acked")
+    if build_schedule(sk.schedule_shell(), seed) != v.schedule:
+        raise AssertionError("soak: the schedule is not the seed's")
+    if b1 <= 0 or b2:
+        raise AssertionError(f"soak: launched B1 {b1}, B2 {b2} times; "
+                             "expected B1 only")
+    return b1, b2
+
+
+def phase_load_cli(card: str, extra_args=()):
+    """Phase 10f: the port's load CLI, ``python -m
+    ceph_tpu_torch.tools.load`` with each of ``LOAD_CLIS`` (and
+    ``extra_args``, for a rehearsal), each in a subprocess from the
+    checkout's root under ``LOAD_CLI_BOUND_S``: each exits 0 and prints
+    ``ALL GATES PASS``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    for args in LOAD_CLIS:
+        args = args + tuple(extra_args)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.load", *args],
+            cwd=root, env=env, capture_output=True, text=True,
+            timeout=LOAD_CLI_BOUND_S)
+        wall = time.perf_counter() - t0
+        lines = res.stdout.strip().splitlines()
+        log(f"load CLI [{card}]: {' '.join(args)}: exit {res.returncode}, "
+            f"{lines[0] if lines else 'no output'}; wall {wall:.3f} s of "
+            f"its {LOAD_CLI_BOUND_S:g} s bound")
+        if res.returncode != 0 or "ALL GATES PASS" not in res.stdout:
+            raise AssertionError(f"load CLI: {' '.join(args)}: exit "
+                                 f"{res.returncode}: {res.stdout[-2000:]} "
+                                 f"{res.stderr[-2000:]}")
 
 
 def card_name() -> str:
@@ -5017,8 +5242,16 @@ def main() -> int:
         b1_launches += ch_b1
         b2_launches += ch_b2
     mark("chaos and race runs")
+    # the ramp and the soak, each on a fresh cluster and its own counted
+    # window, then the load CLI in its own process
+    for run in (phase_ramp, phase_soak):
+        ch_b1, ch_b2 = run(card, reset_counts, (gf8_cuda, gf8_bytes_cuda))
+        b1_launches += ch_b1
+        b2_launches += ch_b2
+    phase_load_cli(card)
+    mark("ramp, soak and load CLI")
     log(f"phase clock (so far): phase 10 "
-        f"{load_s + marks[-1][1] - marks[-2][1]:.3f} s (the load window "
+        f"{load_s + marks[-1][1] - marks[-3][1]:.3f} s (the load window "
         f"{load_s:.3f} s inside the OSD cluster's)")
 
     phase_one_launch(cauchy, cdata)

@@ -107,7 +107,15 @@ def test_objectstore_tool(tmp_path, capsys):
 
 def test_objectstore_tool_reads_a_stopped_osds_pg_log(tmp_path, capsys):
     """``--op meta`` on a FileStore an OSD wrote: the persisted PG log
-    (the port's ``osd.PGMETA`` object), as the reference prints it."""
+    (the port's ``osd.PGMETA`` object), as the reference prints it.
+
+    The two packages' FileStores share their on-disk format, so each
+    tool reads both stores and the two must print the same text for
+    each store.  Across the packages the logs hold the same entries
+    (sequence, op, object); each entry's epoch is the one its own
+    cluster's primary held at that write.  Which epoch the writes land
+    in depends on timing (a loaded host's missed heartbeat commits one
+    more), so the two clusters' epochs are not compared."""
     async def scenario(P):
         start_cluster = P.imp("cluster.vstart.start_cluster")
         FileStore = P.imp("cluster.filestore.FileStore")
@@ -119,25 +127,43 @@ def test_objectstore_tool_reads_a_stopped_osds_pg_log(tmp_path, capsys):
             pool = await client.pool_create("ost", "replicated",
                                             pg_num=1, size=1)
             io = client.ioctx(pool)
-            for i in range(3):
-                await io.write_full(f"o{i}", b"v" * (i + 1))
             pgid = client.objecter.object_pgid(pool, "o0")
             _, _, _, primary = \
                 client.objecter.osdmap.pg_to_up_acting_osds(pgid)
-            return str(root / f"osd{primary}"), f"pg_{pool}_{pgid.seed}"
+            epochs = []
+            for i in range(3):
+                before = cluster.osds[primary].osdmap.epoch
+                await io.write_full(f"o{i}", b"v" * (i + 1))
+                epochs.append((before, cluster.osds[primary].osdmap.epoch))
+            return (str(root / f"osd{primary}"), f"pg_{pool}_{pgid.seed}",
+                    epochs)
         finally:
             await cluster.stop()
 
-    outs = []
-    for P, tool in ((PORT, post), (REF, jost)):
-        path, coll = asyncio.run(asyncio.wait_for(scenario(P), 60))
+    def meta(tool, path, coll):
         capsys.readouterr()
         assert tool.main(["--data-path", path, "--op", "meta",
                           "--collection", coll]) == 0
-        text = capsys.readouterr().out
+        return capsys.readouterr().out
+
+    stores = [asyncio.run(asyncio.wait_for(scenario(P), 60))
+              for P in (PORT, REF)]
+    entries = []
+    for path, coll, epochs in stores:
+        text = meta(post, path, coll)
+        assert text == meta(jost, path, coll)
         assert text.startswith("last_update") and " o2" in text
-        outs.append(text)
-    assert outs[0] == outs[1]
+        logged = re.findall(r"^  \((\d+), (\d+)\) (\w+) (\S+)$", text,
+                            re.MULTILINE)
+        assert len(logged) == len(epochs) == 3
+        for (epoch, _seq, _op, _oid), (lo, hi) in zip(logged, epochs):
+            assert lo <= int(epoch) <= hi
+        assert text.splitlines()[0] == \
+            f"last_update ({logged[-1][0]}, {logged[-1][1]})"
+        entries.append([e[1:] for e in logged])
+    assert entries[0] == entries[1] == [("1", "modify", "o0"),
+                                        ("2", "modify", "o1"),
+                                        ("3", "modify", "o2")]
 
 
 def test_rados_cli_against_live_cluster(tmp_path, capsys):

@@ -569,13 +569,84 @@ def test_map_distribution_is_incremental():
             # full maps; the pool-create broadcasts must all be incremental
             assert perf.get("mon_inc_maps_sent", 0) >= 8, perf
             assert perf.get("mon_full_maps_sent", 0) <= 6, perf
-            # clients converge on the same epoch as the mon
-            await client.objecter._refresh_map()
+            # clients converge on the same epoch as the mon, compared on
+            # a quiet mon: an epoch that commits while the refresh is out
+            # (a loaded worker's missed heartbeat marks an OSD down) is
+            # not the refresh's to cover, and the reference's refresh
+            # ends on any map message, so pushes already in flight land
+            # first.  A refresh the mon moved under is taken again.
+            for _ in range(5):
+                epoch = await quiet_mon_epoch(cluster)
+                await client.objecter._refresh_map()
+                if cluster.mon.osdmap.epoch == epoch:
+                    break
             assert client.objecter.osdmap.epoch == cluster.mon.osdmap.epoch
         finally:
             await cluster.stop()
 
     run_both(scenario)
+
+
+async def quiet_mon_epoch(cluster, quiet: float = 0.5) -> int:
+    """The mon's epoch once it has stayed put for ``quiet`` seconds."""
+    loop = asyncio.get_running_loop()
+    epoch, since = cluster.mon.osdmap.epoch, loop.time()
+    while loop.time() - since < quiet:
+        await asyncio.sleep(0.05)
+        if cluster.mon.osdmap.epoch != epoch:
+            epoch, since = cluster.mon.osdmap.epoch, loop.time()
+    return epoch
+
+
+def test_refresh_map_is_not_ended_by_an_older_push_in_flight():
+    """A map push of an older epoch that lands while ``_refresh_map``
+    waits does not end the refresh: it returns with the map at least at
+    the mon's epoch when the refresh began.  (The port's repair: the
+    reference's refresh ends on any map message.)"""
+    async def scenario():
+        from ceph_tpu_torch.cluster import messages as M
+        from ceph_tpu_torch.cluster.vstart import start_cluster
+
+        cluster = await start_cluster(3, device="cpu")
+        try:
+            client = await cluster.client()
+            admin = await cluster.client(name="admin2")
+            obj = client.objecter
+            ours = obj.osdmap.epoch
+            # the client misses the pushes of the next epochs...
+            hold = True
+            dispatch = obj.ms_dispatch
+
+            async def holding(conn, msg):
+                if hold and isinstance(msg, (M.MOSDMapMsg,
+                                             M.MOSDIncMapMsg)):
+                    return True
+                return await dispatch(conn, msg)
+
+            obj.ms_dispatch = holding
+            await admin.pool_create("p", "replicated", pg_num=4, size=2)
+            mon_epoch = await quiet_mon_epoch(cluster)
+            hold = False
+            assert obj.osdmap.epoch == ours < mon_epoch
+            # ...and a push of the epoch it holds lands just as its
+            # refresh subscribes
+            send = obj._mon_send
+
+            async def push_first(msg):
+                if isinstance(msg, M.MMonSubscribe):
+                    await obj.ms_dispatch(None, M.MOSDIncMapMsg(
+                        prev_epoch=ours - 1, epoch=ours, inc_blobs=[]))
+                return await send(msg)
+
+            obj._mon_send = push_first
+            await obj._refresh_map()
+            return ours, mon_epoch, obj.osdmap.epoch
+        finally:
+            await cluster.stop()
+
+    ours, mon_epoch, got = run(scenario())
+    assert got >= mon_epoch > ours
+
 
 def test_delta_recovery_counts():
     async def scenario(P):

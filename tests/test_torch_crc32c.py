@@ -37,6 +37,14 @@ def test_message_bitmat_equal_reference():
     assert np.array_equal(crc._message_bitmat(24), jcrc._message_bitmat(24))
 
 
+@pytest.mark.parametrize("block", [1, 2, 3, 8, 255, 256, 2048, 4097])
+def test_message_bitmat_by_doubling_equals_reference(block):
+    """The port builds the matrix over the bits of the length (doubling
+    and one-byte steps); the reference steps one byte at a time."""
+    assert np.array_equal(crc._message_bitmat(block),
+                          jcrc._message_bitmat(block))
+
+
 @pytest.mark.parametrize("seed", [0, 0xFFFFFFFF])
 def test_crc32c_batch_equal_reference(seed):
     data = np.random.default_rng(1).integers(0, 256, (6, 40), dtype=np.uint8)

@@ -20,7 +20,8 @@
   no device, the ``rados`` and ``ceph`` CLIs and the EC sidecar; and an
   RBD image, a CephFS file and an RGW object written and read on a CPU
   cluster in a fresh process leave JAX and ``ceph_tpu`` out of
-  ``sys.modules``.
+  ``sys.modules``; so does importing the saturation ramp, the soak
+  runner and the load CLI.
 """
 
 import os
@@ -105,6 +106,8 @@ def test_import_leaves_jax_and_reference_out():
         "import ceph_tpu_torch.cluster.recovery, ceph_tpu_torch.cluster.scrub\n"
         "import ceph_tpu_torch.cluster.osd, ceph_tpu_torch.cluster.objecter\n"
         "import ceph_tpu_torch.cluster.vstart\n"
+        "import ceph_tpu_torch.load.ramp, ceph_tpu_torch.load.soak\n"
+        "import ceph_tpu_torch.tools.load\n"
         "import asyncio\n"
         "from ceph_tpu_torch.cluster.vstart import start_cluster\n"
         "async def io():\n"

@@ -526,10 +526,20 @@ def _message_classes(mod, base):
             and cls is not base and cls.__module__ == mod.__name__}
 
 
+# the fields the port's messages add to the reference's, each a
+# deliberate difference (ROADMAP §C): the interval that fences a stale EC
+# primary's rewinds, and the number that ties a map refresh to the mon's
+# answer.  Each defaults to "none".
+PORT_FIELDS = {"MMonSubscribe": {"tid": 0}, "MOSDMapMsg": {"sub_tid": 0},
+               "MOSDIncMapMsg": {"sub_tid": 0},
+               "MOSDPGPush": {"interval": None}}
+
+
 def test_message_classes_and_fields_equal_reference():
     ref = _message_classes(jmessages, jmessenger.Message)
     port = _message_classes(messages, messenger.Message)
     assert sorted(port) == sorted(ref) and len(port) > 30
+    assert set(PORT_FIELDS) <= set(ref)
     for name, cls in ref.items():
         want = [(f.name, f.init, repr(f.default) if f.default is not
                  dataclasses.MISSING else None)
@@ -537,7 +547,10 @@ def test_message_classes_and_fields_equal_reference():
         got = [(f.name, f.init, repr(f.default) if f.default is not
                 dataclasses.MISSING else None)
                for f in dataclasses.fields(port[name])]
-        assert got == want, name
+        extra = PORT_FIELDS.get(name, {})
+        assert [g for g in got if g[0] not in extra] == want, name
+        assert [g for g in got if g[0] in extra] == \
+            [(k, True, repr(v)) for k, v in extra.items()], name
     assert messages.THROTTLED == jmessages.THROTTLED
     assert messages.MUTATING_OPS == jmessages.MUTATING_OPS
     for name in ("Message", "_MsgAck", "_MsgAuth", "_MsgAuthRequest",
@@ -594,7 +607,7 @@ def test_every_message_round_trips_through_the_port_frames():
     the reference and carried to the port by its fields, crosses a signed
     port session and arrives with every field equal."""
     ref = _message_classes(jmessages, jmessenger.Message)
-    rs = random.Random(2026)
+    rs, rs_port = random.Random(2026), random.Random(2027)
     sent = []
     for name in sorted(ref):
         plain = {f.name: _value(rs, f.default if f.default is not
@@ -602,9 +615,15 @@ def test_every_message_round_trips_through_the_port_frames():
                                 f.name)
                  for f in dataclasses.fields(ref[name]) if f.init}
         rmsg = ref[name](**{k: _carry(v, REF) for k, v in plain.items()})
+        # the port's own fields (PORT_FIELDS) get seeded values too
+        extra = {k: _value(rs_port, 0, k) for k in PORT_FIELDS.get(name, {})}
         pmsg = getattr(messages, name)(**{
-            k: _carry(v, PORT) for k, v in _fields_of(rmsg).items()})
-        assert _fields_of(pmsg) == _fields_of(rmsg) == plain, name
+            k: _carry(v, PORT) for k, v in _fields_of(rmsg).items()},
+            **extra)
+        got = _fields_of(pmsg)
+        assert {k: v for k, v in got.items() if k not in extra} == \
+            _fields_of(rmsg) == plain, name
+        assert {k: got[k] for k in extra} == extra, name
         sent.append(pmsg)
 
     async def scenario():
