@@ -7,10 +7,11 @@ registry the admin socket's ``chaos report`` serves), ``clock`` (the
 skewable per-daemon time source), ``points`` (client-library interrupt
 seams), ``disk`` (store faults), ``net`` (messenger faults), ``daemons``
 (kill / crash / revive / restart, partitions), ``invariants`` (the
-post-convergence checks), ``scenario`` (the seeded scenario runner) and
-``integrity`` (the bitrot-under-load and disk-fill-drain runners).  The
-reference's front-door runner (``frontdoor``) and elastic runner
-(``balance``) come later.
+post-convergence checks), ``scenario`` (the seeded scenario runner),
+``integrity`` (the bitrot-under-load and disk-fill-drain runners),
+``frontdoor`` (RBD / RGW / MDS under client interrupts and MDS crashes)
+and ``balance`` (live expansion, drain and balancer convergence).  The
+package exports both runners.
 """
 
 import asyncio as _asyncio
@@ -55,4 +56,16 @@ from ceph_tpu_torch.chaos.scenario import (  # noqa: E402,F401
     builtin_scenarios,
     ev,
     run_scenario,
+)
+from ceph_tpu_torch.chaos.frontdoor import (  # noqa: E402,F401
+    FrontdoorScenario,
+    FrontdoorState,
+    frontdoor_scenarios,
+    run_frontdoor,
+)
+from ceph_tpu_torch.chaos.balance import (  # noqa: E402,F401
+    ElasticScenario,
+    build_elastic_plan,
+    elastic_scenarios,
+    run_elastic,
 )

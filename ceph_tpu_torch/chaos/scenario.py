@@ -797,11 +797,14 @@ async def _apply_bitrot(cluster, client, e: Dict, rot,
 
 async def _converge(cluster, timeout: float) -> None:
     """All OSDs up in the mon map and every daemon caught up to the
-    epoch (best-effort: invariants do the real judging)."""
+    epoch (best-effort: invariants do the real judging).  An id that a
+    drain purged from the map is no OSD to wait for: the reference waits
+    for it, and so spends its whole ``timeout`` after every drain."""
     deadline = asyncio.get_event_loop().time() + timeout
     n = cluster.mon.osdmap.max_osd
     while asyncio.get_event_loop().time() < deadline:
-        if all(cluster.mon.osdmap.osd_up[o] for o in range(n)):
+        m = cluster.mon.osdmap
+        if all(m.osd_up[o] for o in range(n) if m.osd_exists[o]):
             break
         await asyncio.sleep(0.1)
     try:

@@ -1240,6 +1240,9 @@ class ECBackendMixin:
         layouts = {s: got[s][3] for s in shards}
         return shards, size, version, layouts
 
+    # attempts of one read-repair whose rebuild the map made incomplete
+    READ_REPAIR_TRIES = 5
+
     def _queue_read_repair(self, pool: PGPool, st: PGState, oid: str,
                            bad: Dict[int, str]) -> None:
         """Arm ONE asynchronous in-place repair for shards a gather
@@ -1259,30 +1262,44 @@ class ECBackendMixin:
             return
         self._read_repairs_inflight.add(key)
         st.inconsistent.add(oid)
-        targets = sorted({st.acting[s] for s in bad
-                          if s < len(st.acting)
-                          and st.acting[s] != CRUSH_ITEM_NONE})
         reasons = dict(bad)
 
         async def _repair() -> None:
             try:
-                # the object write lock excludes concurrent writes to
-                # THIS object while the rebuild is being stamped (the
-                # scrub path holds st.lock for the same reason); other
-                # objects of the PG proceed
-                async with self._obj_write_lock(st, oid):
-                    ok = await self._recover_ec_object(
-                        pool, st, oid, targets=targets,
-                        exclude_sources=set(reasons))
-                if ok:
-                    self.perf.inc("osd_read_repairs")
-                    st.inconsistent.discard(oid)
-                    self.clog(
-                        "WRN",
-                        f"pg {st.pgid} read-repair: {oid} shards "
-                        f"{reasons} rebuilt on osds {targets}")
-                # not ok: the object stays inconsistent — the scheduled
-                # scrub (or the next detecting read) retries the repair
+                for attempt in range(self.READ_REPAIR_TRIES):
+                    if attempt:
+                        # the rebuild was incomplete: say a member of a
+                        # bad slot left acting while the shards were
+                        # gathered (the map moved).  The reference counts
+                        # such a rebuild done and clears the object; this
+                        # rebuild says it is not, so the repair tries
+                        # again on the map of its next attempt
+                        await asyncio.sleep(0.25 * attempt)
+                    if self._stopped or st.primary != self.osd_id:
+                        return
+                    # each attempt's targets: whoever holds a bad slot
+                    # in acting now
+                    targets = sorted({st.acting[s] for s in reasons
+                                      if s < len(st.acting)
+                                      and st.acting[s] != CRUSH_ITEM_NONE})
+                    # the object write lock excludes concurrent writes to
+                    # THIS object while the rebuild is being stamped (the
+                    # scrub path holds st.lock for the same reason); other
+                    # objects of the PG proceed
+                    async with self._obj_write_lock(st, oid):
+                        ok = await self._recover_ec_object(
+                            pool, st, oid, targets=targets,
+                            exclude_sources=set(reasons))
+                    if ok:
+                        self.perf.inc("osd_read_repairs")
+                        st.inconsistent.discard(oid)
+                        self.clog(
+                            "WRN",
+                            f"pg {st.pgid} read-repair: {oid} shards "
+                            f"{reasons} rebuilt on osds {targets}")
+                        return
+                # not repaired: the object stays inconsistent — the
+                # scheduled scrub (or the next detecting read) retries
             except asyncio.CancelledError:
                 raise
             except Exception:

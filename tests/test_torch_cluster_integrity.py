@@ -8,7 +8,8 @@ OSD-backed cases of ``tests/test_cluster_mon.py`` and
 ``tests/test_balance_elastic.py::test_disabled_balance_subsystem_is_noop``.
 Each runs on both packages through ``tests/test_torch_cluster.run_both``
 (or, for a scenario in several phases, phase by phase under the same
-bound), each run under its own deadline.
+bound), each run under its own deadline; one port-only case pins the
+read-repair's retry of a rebuild the map made incomplete.
 """
 
 import asyncio
@@ -1295,6 +1296,73 @@ def test_read_repair_heals_generation_stale_shard():
 
     run_both(scenario)
 
+
+
+def test_read_repair_retries_a_rebuild_the_map_made_incomplete():
+    """Port only (ROADMAP §C5's unrepaired object): a read-repair whose
+    rebuild found the member of its bad slot gone from acting when the
+    shards were gathered (the map moved) is incomplete (the port's
+    ``_recover_ec_object``; the reference counts it done and clears the
+    object).  The repair tries again on the map of its next attempt: the
+    member's shard is rebuilt and the object leaves the PG's
+    inconsistent set.  Before the retry the object stayed inconsistent
+    to the end of the run (PG_INCONSISTENT)."""
+    from ceph_tpu_torch.cluster.store import Transaction
+    from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+
+    async def scenario():
+        start_cluster = PORT.imp("cluster.vstart.start_cluster")
+        cluster = await start_cluster(4)
+        try:
+            client = await cluster.client()
+            pool_id = await client.pool_create("rm", "erasure", pg_num=4,
+                                               ec_profile=EC21)
+            data = b"moved-member-" * 300
+            await client.ioctx(pool_id).write_full("obj", data,
+                                                   timeout=120)
+            pgid = client.objecter.object_pgid(pool_id, "obj")
+            coll = f"pg_{pgid.pool}_{pgid.seed}"
+            _, _, acting, primary_id = \
+                cluster.mon.osdmap.pg_to_up_acting_osds(pgid)
+            primary = cluster.osds[primary_id]
+            st = primary.pgs[pgid]
+            pool = primary.osdmap.pools[pool_id]
+            slot = next(i for i, o in enumerate(acting) if o != primary_id)
+            victim = cluster.osds[acting[slot]]
+            victim.store.queue_transaction(Transaction().remove(coll, "obj"))
+            real_gather = primary._gather_shards
+            moved = []
+
+            async def gather(*args, **kwargs):
+                out = await real_gather(*args, **kwargs)
+                if not moved:
+                    # the map moves the member out of its slot while the
+                    # rebuild's shards are gathered, and back a moment on
+                    moved.append((list(st.acting), list(st.up)))
+                    st.acting[slot] = st.up[slot] = CRUSH_ITEM_NONE
+
+                    def back():
+                        st.acting[:], st.up[:] = moved[0]
+
+                    asyncio.get_event_loop().call_later(0.1, back)
+                return out
+
+            primary._gather_shards = gather
+            primary._queue_read_repair(pool, st, "obj", {slot: "stale"})
+            assert "obj" in st.inconsistent
+            assert await _converge_poll(lambda: "obj" not in st.inconsistent,
+                                        timeout=10.0)
+            assert moved and primary.perf.get(
+                "osd_recovery_target_moved") >= 1
+            assert primary.perf.get("osd_read_repairs") >= 1
+            assert await _converge_poll(
+                lambda: victim.store.stat(coll, "obj") is not None)
+            del primary._gather_shards
+            assert await client.ioctx(pool_id).read("obj") == data
+        finally:
+            await cluster.stop()
+
+    run(scenario())
 
 
 # -- the cases of tests/test_balance_elastic.py -------------------------------

@@ -21,7 +21,11 @@
   RBD image, a CephFS file and an RGW object written and read on a CPU
   cluster in a fresh process leave JAX and ``ceph_tpu`` out of
   ``sys.modules``; so does importing the saturation ramp, the soak
-  runner and the load CLI.
+  runner and the load CLI, the front-door and elastic runners and the
+  chaos and blackbox CLIs;
+- ``run_frontdoor``, ``run_elastic`` and the chaos CLI's ``run``, asked
+  for no device, boot their cluster on CUDA, and without a card raise
+  (the CLI exits 2) before anything boots.
 """
 
 import os
@@ -108,6 +112,8 @@ def test_import_leaves_jax_and_reference_out():
         "import ceph_tpu_torch.cluster.vstart\n"
         "import ceph_tpu_torch.load.ramp, ceph_tpu_torch.load.soak\n"
         "import ceph_tpu_torch.tools.load\n"
+        "import ceph_tpu_torch.chaos.frontdoor, ceph_tpu_torch.chaos.balance\n"
+        "import ceph_tpu_torch.tools.chaos, ceph_tpu_torch.tools.blackbox\n"
         "import asyncio\n"
         "from ceph_tpu_torch.cluster.vstart import start_cluster\n"
         "async def io():\n"
@@ -659,3 +665,66 @@ def test_clients_leave_jax_and_reference_out():
                          timeout=150)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "clean"
+
+
+class _Booted(Exception):
+    pass
+
+
+def _chaos_entry_points():
+    import asyncio
+
+    from ceph_tpu_torch.chaos.balance import elastic_scenarios, run_elastic
+    from ceph_tpu_torch.chaos.frontdoor import (frontdoor_scenarios,
+                                                run_frontdoor)
+    from ceph_tpu_torch.tools import chaos as chaos_cli
+
+    def run(coro):
+        return asyncio.run(asyncio.wait_for(coro, 30))
+
+    def cli(**kw):
+        argv = ["run", "--scenario", "frontdoor-smoke", "--no-postmortem"]
+        if "device" in kw:
+            argv += ["--device", kw["device"]]
+        rc = chaos_cli.main(argv)
+        if rc == 2:
+            raise RuntimeError("no CUDA card: the CLI exited 2")
+        return rc
+
+    fd = frontdoor_scenarios(1.0)["frontdoor-smoke"]
+    el = elastic_scenarios(0.03)["expand-drain-smoke"]
+    return {
+        "run_frontdoor": lambda **kw: run(run_frontdoor(fd, 7, **kw)),
+        "run_elastic": lambda **kw: run(run_elastic(el, 7, **kw)),
+        "tools.chaos run": cli,
+    }
+
+
+@pytest.mark.parametrize("entry", ["run_frontdoor", "run_elastic",
+                                   "tools.chaos run"])
+def test_chaos_runners_and_cli_default_to_cuda_and_refuse_cpu_fallback(
+        entry, monkeypatch):
+    """With no ``device`` the cluster boots on the CUDA card; without a
+    card the runner raises (the CLI exits 2) before it boots anything;
+    ``device="cpu"`` boots on the CPU."""
+    import ceph_tpu_torch.cluster.vstart as vstart
+
+    booted = []
+
+    async def fake_start(*args, device=None, **kwargs):
+        booted.append(device)
+        raise _Booted()
+
+    monkeypatch.setattr(vstart, "start_cluster", fake_start)
+    call = _chaos_entry_points()[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert booted == []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(_Booted):
+        call()
+    with pytest.raises(_Booted):
+        call(device="cpu")
+    assert booted == [torch.device("cuda", 0), torch.device("cpu")]
