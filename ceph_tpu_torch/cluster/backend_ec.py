@@ -897,6 +897,16 @@ class ECBackendMixin:
                 reqid=msg.reqid, result=-5, shard=msg.shard))
             return
         stored_crc = self.store.getattr(coll, msg.oid, "hinfo_crc")
+        # the attrs that describe these bytes, read with them: the
+        # verify below awaits a read-coalescer tick, and a sub-write
+        # applied meanwhile would otherwise label the old bytes with its
+        # new version and size (a reply the gatherer then decodes with
+        # newer shards into a torn object)
+        shard_attr = self.store.getattr(coll, msg.oid, "shard")
+        size = self.store.getattr(coll, msg.oid, "size")
+        version = self.store.get_version(coll, msg.oid)
+        xattrs = dict(self.store.get_xattrs(coll, msg.oid)) \
+            if msg.shard == -1 else None
         # verify-on-read: the shard crc checks
         # against the stored hinfo before any byte leaves this holder
         # (ecbackend.rst:86-99); concurrent sub-reads on this daemon
@@ -935,18 +945,15 @@ class ECBackendMixin:
         else:
             data = full[msg.off: msg.off + msg.length] \
                 if msg.length is not None else full[msg.off:]
-        shard_attr = self.store.getattr(coll, msg.oid, "shard")
         shard = int(shard_attr) if shard_attr else msg.shard
-        size = self.store.getattr(coll, msg.oid, "size")
         hinfo = {"size": int(size) if size else 0,
                  # version on EVERY reply: the gatherer groups shards
                  # by generation before decoding (stale-member guard)
-                 "version": self.store.get_version(coll, msg.oid)}
+                 "version": version}
         if msg.shard == -1:
             # whole-object fetch (pull recovery): carry xattrs so the
             # puller stores a faithful copy
-            hinfo["xattrs"] = dict(self.store.get_xattrs(
-                coll, msg.oid))
+            hinfo["xattrs"] = xattrs
         await self._reply_osd(conn, msg, M.MOSDECSubOpReadReply(
             reqid=msg.reqid, result=0, shard=shard, data=data,
             hinfo=hinfo, layout=out_layout))
@@ -1112,6 +1119,11 @@ class ECBackendMixin:
                 self.perf.inc("osd_read_shard_errors")
                 if local_shard is not None:
                     repair[local_shard] = "eio"
+            # the local shard's size and version, read with its bytes:
+            # the verify below awaits a tick, across which a write can
+            # land newer attrs on older bytes (_handle_ec_read's race)
+            sa = self.store.getattr(coll, oid, "size")
+            local_version = self.store.get_version(coll, oid)
             if full is not None:
                 stored = self.store.getattr(coll, oid, "hinfo_crc")
                 ok = True
@@ -1136,10 +1148,9 @@ class ECBackendMixin:
             if data is not None and local_shard is not None and \
                     local_shard not in exclude_shards and \
                     local_shard not in repair:
-                sa = self.store.getattr(coll, oid, "size")
                 got[local_shard] = (
                     data,
-                    self.store.get_version(coll, oid),
+                    local_version,
                     int(sa) if sa else 0,
                     planar_store.LAYOUT_PLANAR if lp else None)
         committed_seq = st.last_complete[1]

@@ -74,7 +74,7 @@ class SubWriteBatcher:
             self._osd._track(task)
         # resolved by the local worker's finally even on cancellation
         # (exception), never a cross-daemon wait
-        await fut
+        await fut  # graftlint: ignore[rpc-timeout]
 
     async def _drain(self, target: int) -> None:
         from ceph_tpu_torch.cluster import messages as M
@@ -159,7 +159,7 @@ class OpBatcher:
             self._obj._track(task)
         # resolved by the local worker's finally even on cancellation
         # (exception), never a cross-daemon wait
-        await fut
+        await fut  # graftlint: ignore[rpc-timeout]
 
     async def _drain(self, addr: Tuple) -> None:
         import time as _time
@@ -394,7 +394,7 @@ class ReadBatcher:
             self._osd._track(task)
         # resolved by the local worker's finally even on cancellation —
         # never a cross-daemon wait (the EncodeBatcher contract)
-        return await fut
+        return await fut  # graftlint: ignore[rpc-timeout]
 
     @staticmethod
     def _verify_multi(reqs, device):
@@ -567,7 +567,7 @@ class EncodeBatcher:
         # task just armed above, whose finally resolves EVERY parked
         # request (exception on cancellation) — a bound here would only
         # add a spurious failure mode under first-call kernel builds
-        return await fut
+        return await fut  # graftlint: ignore[rpc-timeout]
 
     async def encode_once(self, codec, sinfo, data,
                           planar: bool = False):

@@ -676,7 +676,7 @@ class BlueStore(ObjectStore):
                 # column i of ALL 8 plane rows, so the whole object is
                 # read and csum-verified; books the ``unseamed``
                 # counter the steady-state contract pins to zero.
-                data = planar_store.planes_to_shard(
+                data = planar_store.planes_to_shard(  # graftlint: ignore[planar-conversion-hygiene]
                     planar_store.blob_to_planes(self._read_all(
                         coll, oid, o)), seam="unseamed")
                 if length is None:

@@ -888,6 +888,6 @@ class Messenger:
         if pending:
             # teardown drain of just-cancelled reader tasks; their
             # results are void by definition
-            await asyncio.gather(*pending, return_exceptions=True)
+            await asyncio.gather(*pending, return_exceptions=True)  # graftlint: ignore[swallowed-async-error]
         if self._server:
             await self._server.wait_closed()

@@ -1069,6 +1069,19 @@ class Monitor(Dispatcher):
                 (prev_instance is not None and msg.instance and
                  prev_instance != msg.instance))
             self._boot_instances[msg.osd_id] = msg.instance
+            if self.osdmap.osd_up[msg.osd_id] and not new_incarnation \
+                    and cur_addr is not None:
+                # a duplicate boot of the daemon life the map already
+                # has up: a daemon marked down sends one on every map
+                # that still shows it down, so a markdown of many OSDs
+                # over many epochs queues many.  Each committed would
+                # be an epoch, a pg_temp mint over every pool and a map
+                # advance on every OSD (a boot storm that feeds itself
+                # on a loaded loop); reference OSDMonitor::preprocess_boot
+                # drops it.  It proves liveness like a beacon.
+                self.last_beacon[msg.osd_id] = self.clock.monotonic()
+                self.perf.inc("mon_osd_boot_dups")
+                return
             if self.osdmap.osd_up[msg.osd_id] and new_incarnation:
                 # a NEW incarnation of an osd we still think is up (it
                 # bounced faster than failure detection): mark it down

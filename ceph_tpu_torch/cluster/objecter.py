@@ -215,7 +215,7 @@ class Objecter(Dispatcher):
         if self._tasks:
             # teardown barrier: cancelled batcher ticks fail their
             # parked ops via the batcher's own finally (ConnectionError)
-            await asyncio.gather(*self._tasks, return_exceptions=True)
+            await asyncio.gather(*self._tasks, return_exceptions=True)  # graftlint: ignore[swallowed-async-error]
         await self.messenger.shutdown()
 
     async def ms_handle_reset(self, conn: Connection) -> None:

@@ -214,12 +214,14 @@ class OSDDaemon(PGLogMixin, ClientOpsMixin, ReplicatedBackendMixin,
         # no semaphore mode, and ordering is safe by construction — the
         # semaphore is only ever acquired BEFORE (never while holding)
         # a PG lock (recovery._recover_pg)
-        self._peering_sem = asyncio.Semaphore(
+        self._peering_sem = asyncio.Semaphore(  # graftlint: ignore[asyncio-blocking]
             max(1, self.config.osd_peering_max_concurrent))
         self._peering_rng = _chaos_stream(
             self.config.chaos_seed, f"peering:osd.{osd_id}") \
             if self.config.chaos_seed else None
         self._hb_last: Dict[int, float] = {}
+        # the address each heartbeat peer's stamp belongs to
+        self._hb_addr: Dict[int, Tuple] = {}
         self._reported: Set[int] = set()
         # dmClock op scheduling (reference mClockClientQueue plugged into
         # ShardedOpWQ): enabled by osd_op_queue=mclock; ops enqueue per
@@ -420,7 +422,7 @@ class OSDDaemon(PGLogMixin, ClientOpsMixin, ReplicatedBackendMixin,
         if self._opq_running:
             # teardown drain of already-cancelled op tasks; their
             # results are void by definition
-            await asyncio.gather(*self._opq_running,
+            await asyncio.gather(*self._opq_running,  # graftlint: ignore[swallowed-async-error]
                                  return_exceptions=True)
         await self.messenger.shutdown()
         if crash:
@@ -1605,23 +1607,35 @@ class OSDDaemon(PGLogMixin, ClientOpsMixin, ReplicatedBackendMixin,
                 except (ConnectionError, OSError, RuntimeError):
                     pass
             for osd, addr in list(m.osd_addrs.items()):
-                if osd == self.osd_id or not m.osd_up[osd]:
+                if osd == self.osd_id:
                     continue
+                if not m.osd_up[osd]:
+                    # a down peer leaves the heartbeat set, whoever
+                    # reported it: the stamp of its last reply would
+                    # otherwise outlive it and accuse its next life the
+                    # moment it is up (reference heartbeat_peers is
+                    # rebuilt from each map)
+                    self._hb_last.pop(osd, None)
+                    self._hb_addr.pop(osd, None)
+                    continue
+                if self._hb_addr.get(osd) != tuple(addr):
+                    # a peer new to the set, or a new life at another
+                    # address: tracked afresh from now
+                    self._hb_addr[osd] = tuple(addr)
+                    self._hb_last[osd] = now
+                    self._reported.discard(osd)
                 try:
                     await self.messenger.send_message(
                         M.MPing(stamp=now), addr)
                 except (ConnectionError, OSError):
                     pass
-                last = self._hb_last.get(osd)
-                if last is not None and \
-                        now - last > self.config.osd_heartbeat_grace and \
+                last = self._hb_last.get(osd, now)
+                if now - last > self.config.osd_heartbeat_grace and \
                         osd not in self._reported:
                     self._reported.add(osd)
                     if await self._mon_send(M.MOSDFailure(
                             failed_osd=osd, reporter=self.osd_id)):
                         self.perf.inc("osd_failure_reports")
-                elif last is None:
-                    self._hb_last[osd] = now
             # once the monitor marks a reported peer down, forget it so a
             # future reboot is tracked afresh
             for osd in list(self._reported):

@@ -167,7 +167,7 @@ class Cluster:
         first so a bundle never races the teardown)."""
         while self._bb_tasks:
             # collection drain: each task's outcome is its bundle record
-            await asyncio.gather(*list(self._bb_tasks),
+            await asyncio.gather(*list(self._bb_tasks),  # graftlint: ignore[swallowed-async-error]
                                  return_exceptions=True)
 
     def _arm_chaos_crash(self, osd: OSDDaemon) -> None:
@@ -200,7 +200,7 @@ class Cluster:
         calls this before healing/reviving)."""
         while self._chaos_tasks:
             # teardown drain: each task's outcome is the crash itself
-            await asyncio.gather(*list(self._chaos_tasks),
+            await asyncio.gather(*list(self._chaos_tasks),  # graftlint: ignore[swallowed-async-error]
                                  return_exceptions=True)
 
     @property

@@ -6,10 +6,11 @@ becomes one ``dispatch()`` call instead of a per-daemon if/elif ladder,
 and the ``ceph daemon <name> <cmd>`` CLI path reaches any daemon through
 the same table.
 
-Counterpart of ``ceph_tpu/utils/admin_socket.py``.  The port serves the
-same common command set except ``graftlint report``, which reads the
-static-analysis package and arrives with it (``race report`` reads the
-race tracker, ``ceph_tpu_torch/analysis/racecheck.py``).
+Counterpart of ``ceph_tpu/utils/admin_socket.py``, with the same common
+command set: ``graftlint report`` serves the port's static-analysis
+summary (``ceph_tpu_torch/analysis/``, the port's own files and
+baseline), ``race report`` the race tracker
+(``ceph_tpu_torch/analysis/racecheck.py``).
 
 Handlers take the full command dict and return the reply payload; they
 may be sync or async (the reference's equivalent seam is AdminSocketHook
@@ -102,6 +103,9 @@ class AdminSocket:
                       "is installed)")
         self.register("lockdep dump", _lockdep_dump,
                       "dump the observed runtime lock-ordering graph")
+        self.register("graftlint report", _graftlint_report,
+                      "last static-analysis summary (lint runs on "
+                      "first request)")
         self.register("chaos report",
                       lambda cmd: _chaos_report(config),
                       "injected-fault counters + this daemon's active "
@@ -126,7 +130,40 @@ def _race_report():
 
 
 def _lockdep_dump(cmd):
-    """The live runtime lock graph."""
+    """The live runtime lock graph; feed it to ``python -m
+    ceph_tpu_torch.tools.graftlint --runtime-edges`` to merge with the
+    static graph."""
     from ceph_tpu_torch.utils.lockdep import LockDep
 
     return LockDep.instance().dump()
+
+
+async def _graftlint_report(cmd):
+    """The cached graftlint summary of the port; a live cluster's first
+    request (or cmd={"refresh": true}) runs the whole-port lint — pure
+    AST walking, but seconds of CPU over 200 files, so it runs in an
+    executor: the daemon's event loop must keep serving heartbeats and
+    ops meanwhile (stalling it would be exactly the asyncio-blocking bug
+    class this subsystem lints for)."""
+    import asyncio
+
+    from ceph_tpu_torch import analysis
+
+    loop = asyncio.get_event_loop()
+    if cmd.get("refresh"):
+        from ceph_tpu_torch.analysis.baseline import default_baseline_path, \
+            load_baseline
+        from ceph_tpu_torch.utils.lockdep import LockDep
+
+        # a refresh also folds the CURRENT runtime edges into the
+        # merged-graph acyclicity check
+        baseline = load_baseline(default_baseline_path())
+        edges = LockDep.instance().dump()["edges"]
+        report = await loop.run_in_executor(
+            None, lambda: analysis.run_lint(baseline=baseline,
+                                            runtime_edges=edges))
+        return report.summary()
+    cached = analysis.last_report(run_if_missing=False)
+    if cached is not None:
+        return cached
+    return await loop.run_in_executor(None, analysis.last_report)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement, device mesh, OSD store path, control plane, OSD cluster and its clients, and its chaos runner and load driver on the CUDA cards.
+"""Drive the PyTorch/CUDA port's erasure-code hot paths, CRUSH placement, device mesh, OSD store path, control plane, OSD cluster and its clients, its chaos runner and load driver, and its operator CLIs on the CUDA cards.
 
 Run from the repository root with no arguments:
 
@@ -159,8 +159,9 @@ non-zero if any of them fails:
    at rest, kernel B2) and a replicated size-3 pool of 256 PGs; 8, 4
    and 4 objects of 4 MiB from the seed (a quarter of rados bench's 32,
    16 and 16), written and read back with up to 16 ops in flight (rados
-   bench's default); the EC PGs holding them deep-scrubbed (each OSD its
-   primary PGs, side by side); one OSD stopped until it is down and out and every PG is
+   bench's default); once every PG is clean again, the EC PGs holding
+   them deep-scrubbed, each once, by the OSD that holds it as primary
+   (the OSDs side by side); one OSD stopped until it is down and out and every PG is
    clean as the cluster reports it (then up to 30 s for the last pushes
    to land on every acting member, and until no OSD peers, retries,
    recovers or launches a kernel for 1 s), every object read again; the
@@ -185,16 +186,16 @@ non-zero if any of them fails:
    tools/ec_sidecar}.py``): ``tools/rados.bench`` at Ceph's defaults
    (4 MiB blocks, 16 in flight) for 2 s of ``write`` and 2 s of ``seq``
    on the ISA pool, every read compared with the block; an RBD image of
-   32 MiB on the ISA pool at RBD's default layout (4 MiB objects,
-   ``stripe_unit`` the object size, ``stripe_count`` 1): 8 sequential
-   4 MiB writes with 8 in flight, 16 random 4 KiB overwrites of distinct
+   16 MiB on the ISA pool at RBD's default layout (4 MiB objects,
+   ``stripe_unit`` the object size, ``stripe_count`` 1): 4 sequential
+   4 MiB writes with 8 in flight, 8 random 4 KiB overwrites of distinct
    blocks from the seed (fio's ``randwrite 4k``), a full read against a
    host model of the image, a snapshot and its full read;
    ``Cluster.start_mds`` with its metadata on the replicated pool and
-   its data on the cauchy pool, an ``MDSClient``: ``mkdir /d``, 4 files
+   its data on the cauchy pool, an ``MDSClient``: ``mkdir /d``, 2 files
    of 4 MiB from the seed written and read back, ``listdir`` and
    ``stat``; RGW on the replicated pool behind ``RGWFrontend`` on
-   loopback with one account: signed PUT and GET of 4 objects of 4 MiB
+   loopback with one account: signed PUT and GET of 2 objects of 4 MiB
    and one multipart upload of three 5 MiB parts, every ETag and byte
    checked; the EC sidecar (``ec_sidecar.Sidecar`` on the card, a unix
    socket in the phase's temporary directory), the native shim and its
@@ -228,8 +229,9 @@ non-zero if any of them fails:
    ``integrity_scenarios()["bitrot-under-load"]``, each on a fresh
    cluster on ``cuda:0``: every verdict passes (its durability invariant
    reads back every acked object and checks its crc), and each replay
-   key is the passing one of its schedule; (c) ``race_run("batch-smoke", SEED, shrink=True)`` on the card:
-   the verdict passes and the race tracker convicts nothing; (d)
+   key is the passing one of its schedule; (c) ``race_run("batch-smoke",
+   31, shrink=True)`` on the card: the verdict passes and the race
+   tracker convicts nothing; (d)
    ``ramp`` of ``read-heavy`` at 256 PGs at scales 1 and 2 on a fresh
    cluster on the card, its PGs clean before the first step, its
    artifact written to a temporary directory:
@@ -252,9 +254,19 @@ non-zero if any of them fails:
    --seed 7 --json --no-postmortem --device cuda`` in a subprocess
    started beside the elastic run: exit 0, a passing verdict, a client
    interrupt and an MDS crash point fired, and its schedule the one
-   ``schedule`` prints, twice alike, in processes that see no card.
-   (d), (e), (f) and each part of (g) run under their own bound (60,
-   90, 45, 60 and 60 s).  Printed beside the
+   ``schedule`` prints, twice alike, in processes that see no card;
+   (h) the trace, balance and graftlint CLIs (``tools/{trace,balance,
+   graftlint}.py``) through their ``main(argv)`` in this process with
+   ``--device cuda``, each on a fresh cluster: ``trace attribute --secs
+   2 --json`` (reed_sol_van k2m1 writes on 3 OSDs; its merged per-stage
+   split printed as (stage, seconds an op, share of the op's wall), its
+   wall coverage at least 0.85), ``trace demo --json`` (its op's span
+   tree reaches all three OSDs), ``balance status`` and ``balance
+   optimize`` (the moves committed printed) and ``graftlint --race
+   batch-smoke --seeds 31 --json`` (its replay key equal to (c)'s); each
+   exits 0.  (d), (e), (f), each part of (g) and each command of (h)
+   run under their own bound (60, 90, 45, 60, 60 and 60 s).  Printed
+   beside the
    card: the gate rows, the offered and acked ops, each scenario's
    schedule length, the faults that fired, the acked objects, the heal,
    converge and invariant times and the wall time, each ramp step's
@@ -305,7 +317,9 @@ every launch staged.  Phase 10's load window (among phase 9's), each
 scenario of (b) and (c), the ramp (d) and the soak (e) are main paths
 too: B1 and not B2; (f) runs in its own process; the elastic run of (g)
 is a main path on a replicated pool, so neither kernel may launch, and
-the chaos CLI of (g) runs a replicated pool in its own process.  Before the
+the chaos CLI of (g) runs a replicated pool in its own process; each
+command of (h) is a main path: the trace commands and the race run B1
+and not B2, the balance commands (a replicated pool) neither.  Before the
 last lines, one ``phase clock`` line a phase gives its seconds.  The last
 lines are the card's name and power limit, one JSON object describing each
 kernel (B1's and B2's launches summed over every main path), and ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -3220,8 +3234,10 @@ OC_WAIT_S = 120.0               # each wait for a map state or clean PGs
 
 def oc_config():
     """vstart's test timings, with failure, lease and Paxos timeouts of
-    Ceph's own order (a 1 s heartbeat, 20 s grace, 10 s lease and round
-    timeouts; 24 OSDs pinging 23 peers every 0.1 s would fill one event
+    Ceph's own order (a 1 s heartbeat, 20 s grace, a 900 s beacon
+    timeout, 10 s lease and round timeouts; live OSDs were marked down
+    after the pool creates' loop blocks on a slow host, and beacons only
+    back up the peers' reports; 24 OSDs pinging 23 peers every 0.1 s would fill one event
     loop with 5,520 round trips a second): the first map advance after a pool create maps the new
     pool on the event loop, and a 12-of-12-host erasure pool takes the
     batched mapper seconds on the card (its retries are launch-bound),
@@ -3237,7 +3253,10 @@ def oc_config():
     return Config(**{**_fast_config().show(),
                      "osd_heartbeat_interval": 1.0,
                      "osd_heartbeat_grace": 20.0,
-                     "mon_osd_beacon_grace": 20.0,
+                     # Ceph's mon_osd_report_timeout: beacons are the
+                     # backstop for an OSD with no peer left to report
+                     # it; peers report a stopped OSD after the grace
+                     "mon_osd_beacon_grace": 900.0,
                      "mon_lease_ack_timeout": 10.0,
                      "mon_paxos_timeout": 10.0,
                      "osd_client_op_timeout": 120.0,
@@ -3372,11 +3391,17 @@ def oc_state(cluster, objects=()) -> str:
     minted = cluster.mon.perf.get("mon_pg_temp_minted")
     # what made the epochs: OSDs marked down and booted again, clears
     mon = {n: sum(x.perf.get(f"mon_{n}") for x in cluster.mons)
-           for n in ("osd_marked_down", "osd_boot", "pg_temp_requests")}
+           for n in ("osd_marked_down", "osd_boot", "osd_boot_dups",
+                     "osd_boot_fenced", "pg_temp_requests")}
+    # who asked for the markdowns: peers' failure reports (the rest were
+    # beacon-grace markdowns) and the boots the marked daemons sent back
+    osds = {n: sum(x.perf.get(f"osd_{n}") for x in cluster.osds.values())
+            for n in ("failure_reports", "re_boots", "beacon_send_errors")}
     out = [o for o in range(m.max_osd) if m.osd_weight[o] == 0]
     return (f"mon epoch {m.epoch}, OSD epochs {epochs}, pg_temp "
             f"{dict(list(m.pg_temp.items())[:4])} ({len(m.pg_temp)}, "
-            f"{minted} minted), mon {mon}, out {out}, unclean {unclean}, "
+            f"{minted} minted), mon {mon}, OSDs {osds}, out {out}, "
+            f"unclean {unclean}, "
             f"pending {pending}, up "
             f"{sum(m.osd_up)}/{m.max_osd}, absent {absent[:24]} "
             f"({len(absent)}); unclean PGs (up, acting, primary, objects "
@@ -3505,20 +3530,23 @@ CW_BENCH_S = 2.0                # rados bench seconds per mode (write, seq)
                                 # RGW objects halved, when phase 9 passed
                                 # its 420 s bound by 0.5 s on a slow host)
 CW_BLOCK = 4 << 20              # rados bench's default block
-CW_RBD_SIZE = 32 << 20          # RBD's default layout: 4 MiB objects,
+CW_RBD_SIZE = 16 << 20          # RBD's default layout: 4 MiB objects,
 CW_RBD_OBJECT = 4 << 20         # stripe_unit = object size, stripe_count 1
-                                # (64 MiB cut to 32 to keep phase 9 in
-                                # its bound on a slow host)
+                                # (64 MiB cut to 32, then to 16, to keep
+                                # phase 9 in its bound on a slow host)
 CW_RBD_DEPTH = 8                # 4 MiB writes in flight
-CW_RBD_SMALL = 16               # fio randwrite 4k: 16 distinct blocks
+CW_RBD_SMALL = 8                # fio randwrite 4k: 8 distinct blocks
                                 # (64 took 102.5 s of a 782 s call; 32
-                                # took 47.8 s of a 750 s one)
+                                # took 47.8 s of a 750 s one; 16, two
+                                # rounds at depth 8, 23.0 s of a 638 s
+                                # one, and phase 9 427.9 s on a slow host)
 CW_RBD_SMALL_DEPTH = 8          # in flight (32 timed ops out at 120 s)
-CW_FS_FILES = 4                 # CephFS files of 4 MiB on the cauchy pool
+CW_FS_FILES = 2                 # CephFS files of 4 MiB on the cauchy pool
+                                # (8 cut to 4, then to 2, for slow hosts)
 CW_FS_FILE = 4 << 20
 CW_FS_DEPTH = 4                 # files in flight (16 objects of 1 MiB)
 CW_FS_LAYOUT = (1 << 16, 1, 1 << 20)    # fs.py's default file layout
-CW_RGW_OBJECTS = 4              # signed S3 PUT/GET of 4 MiB objects
+CW_RGW_OBJECTS = 2              # signed S3 PUT/GET of 4 MiB objects (8, 4)
 CW_RGW_OBJECT = 4 << 20
 CW_RGW_PART = 5 << 20           # S3's smallest multipart part
 CW_RGW_PARTS = 3
@@ -4119,7 +4147,7 @@ async def osd_cluster_run(dev, card, reset_counts, gf8_mods, store_dir,
     # the shard checks read every store on the loop: the phase's work
     watch.OWN = LoopWatch.OWN + ("check",)
     watch_task = asyncio.get_running_loop().create_task(watch.run())
-    t0 = time.perf_counter()
+    t0, wall0 = time.perf_counter(), time.time()
     cluster = await start_cluster(
         OC_OSDS, osds_per_host=OC_PER_HOST, n_mons=OC_MONS, with_mgr=True,
         config=cfg,
@@ -4183,32 +4211,56 @@ async def osd_cluster_run(dev, card, reset_counts, gf8_mods, store_dir,
                  for o in cluster.osds.values()]
         out["ticks"] = (sum(a for a, _ in ticks), sum(b for _, b in ticks))
         watch.step = "scrub"
+        # a deep scrub reads peered PGs: every OSD on the mon's epoch and
+        # no PG unclean (no wait when the I/O moved no map)
+        out["t"]["scrub clean"] = await oc_wait(
+            lambda: oc_clean(cluster), "PGs clean before the scrub",
+            lambda: oc_state(cluster, objects))
         reset()
         t1 = time.perf_counter()
+        epoch0 = cluster.mon.osdmap.epoch
         # the EC PGs that hold the phase's objects (the others are empty;
-        # scrubbing all 320 took 9-18 s)
+        # scrubbing all 320 took 9-18 s), each on the one OSD that holds
+        # it as primary on that epoch: the PGs are fixed before the
+        # first scrub starts, so a map that moves during the scrub can
+        # neither drop a PG nor scrub one twice
         ec_pgs = {client.objecter.object_pgid(pools[name], oid)
                   for name in ("isa", "cauchy") for oid in data[name]}
+        claims = {pgid: [(o, o.pgs[pgid]) for o in cluster.osds.values()
+                         if pgid in o.pgs
+                         and o.pgs[pgid].primary == o.osd_id]
+                  for pgid in ec_pgs}
+        split = {str(p): [o.osd_id for o, _ in c]
+                 for p, c in claims.items() if len(c) != 1}
+        if split:
+            raise AssertionError(
+                f"OSD cluster: at epoch {epoch0} these EC PGs have not "
+                f"exactly one OSD that holds them as primary: {split}")
+        by_osd = {}
+        for pgid, ((o, st),) in sorted(claims.items()):
+            by_osd.setdefault(o.osd_id, []).append(st)
 
-        async def scrub_primary_pgs(o):
+        async def scrub_primary_pgs(o, sts):
             """One OSD deep-scrubs its primary PGs of ``ec_pgs`` in turn
             (``osd_max_scrubs`` 1); the OSDs scrub side by side."""
-            reports = []
-            for pgid, st in sorted(o.pgs.items()):
-                if pgid in ec_pgs and st.primary == o.osd_id:
-                    reports.append(await o.scrub_pg(st))
-            return reports
+            return [await o.scrub_pg(st) for st in sts]
 
         reports = [r for rs in await asyncio.gather(*(
-            scrub_primary_pgs(o) for o in cluster.osds.values())) for r in rs]
+            scrub_primary_pgs(cluster.osds[o], sts)
+            for o, sts in by_osd.items())) for r in rs]
         bad = [oid for r in reports for oid in r["inconsistent"]]
         scrubbed = len(reports)
         out["t"]["scrub"] = time.perf_counter() - t1
+        epoch1 = cluster.mon.osdmap.epoch
         window("scrub")
+        if epoch1 != epoch0:
+            log(f"OSD cluster: the map moved from epoch {epoch0} to "
+                f"{epoch1} during the scrub: {oc_state(cluster, objects)}")
         if bad or scrubbed != len(ec_pgs):
-            raise AssertionError(f"OSD cluster: deep scrub of {scrubbed} PGs "
-                                 f"found {len(bad)} inconsistent objects")
-        out["scrub"] = (scrubbed, len(bad))
+            raise AssertionError(f"OSD cluster: deep scrub of {scrubbed} of "
+                                 f"{len(ec_pgs)} PGs found {len(bad)} "
+                                 "inconsistent objects")
+        out["scrub"] = (scrubbed, len(bad), epoch0, epoch1)
         t1 = time.perf_counter()
         shards = await asyncio.wrap_future(fut)
         out["t"]["expected wait"] = time.perf_counter() - t1
@@ -4300,6 +4352,17 @@ async def osd_cluster_run(dev, card, reset_counts, gf8_mods, store_dir,
         out["targets"] = (client.objecter.target_seconds,
                           client.objecter.targets)
         out["loop"] = watch.worst
+        out["flaps"] = {n: sum(x.perf.get(f"mon_{n}") for x in cluster.mons)
+                        for n in ("osd_marked_down", "osd_boot",
+                                  "osd_boot_dups")}
+        out["flaps"]["osd_failure_reports"] = sum(
+            o.perf.get("osd_failure_reports") for o in cluster.osds.values())
+        # each markdown as the cluster log has it, seconds after the boot
+        # began (the windows' closing times above are on the same clock)
+        out["flaps"]["markdowns"] = [
+            (round(t - wall0, 3), msg)
+            for _who, t, _prio, msg in cluster.mon.cluster_log
+            if "marked down" in msg]
         last_map = pickle.dumps(cluster.osds[0].osdmap)
     finally:
         await cluster.stop()
@@ -4405,7 +4468,9 @@ def phase_osd_cluster(card: str, reset_counts, gf8_mods, dev=None):
     log(f"OSD cluster [{card}]: encode ticks {ticks} for {tick_ops} ops "
         f"({tick_ops / max(ticks, 1):.3f} ops a tick); deep scrub of "
         f"{out['scrub'][0]} EC PGs {t['scrub']:.3f} s, "
-        f"{out['scrub'][1]} inconsistent")
+        f"{out['scrub'][1]} inconsistent, map epoch {out['scrub'][2]} "
+        f"before and {out['scrub'][3]} after (clean "
+        f"{t['scrub clean']:.3f} s before it)")
     log(f"OSD cluster [{card}]: osd.{OC_VICTIM} stopped: down after "
         f"{t['marked down']:.3f} s, out after {t['marked out']:.3f} s, every "
         f"PG clean {t['recovery']:.3f} s after the stop "
@@ -4432,7 +4497,9 @@ def phase_osd_cluster(card: str, reset_counts, gf8_mods, dev=None):
         f"{t['inputs']:.3f} s (before the boot), the wait for the plain "
         f"codec's shards (a spawned process since before the boot) "
         f"{t['expected wait']:.3f} s; the path "
-        f"{t['path']:.3f} s, the phase {time.perf_counter() - t0:.3f} s")
+        f"{t['path']:.3f} s, the phase {time.perf_counter() - t0:.3f} s; "
+        f"the mon's markdowns and boots, and the peers' failure reports "
+        f"{json.dumps(out['flaps'])}")
     cw_log(out, card)
     lw_log(out, card)
     b1 = sum(w[0][0] for w in wins.values())
@@ -4517,7 +4584,8 @@ LW_OSD_COUNTERS = ("osd_sub_ops_shed_expired", "osd_ec_sub_write_gaps",
 CH_RUNS = (("batch-smoke", 31), ("thrash-ec-midwrite", SEED),
            ("bitrot-under-load", SEED))
 CH_BOUND_S = 150.0              # one scenario, boot to teardown
-RACE_RUN = ("batch-smoke", SEED)
+# 10c: at the seed 10h's race CLI runs, whose replay key must equal 10c's
+RACE_RUN = ("batch-smoke", 31)
 RAMP_SCALES = (1, 2)            # 10d: the offered rate, then twice it
 RAMP_BOUND_S = 60.0
 SOAK_RUN = ("soak-mixed-crash", 17)   # the reference's soak test's seed
@@ -4534,6 +4602,10 @@ ELASTIC_RUN = ("expand-drain-smoke", 7)   # the reference test's seed
 ELASTIC_BOUND_S = 60.0
 CHAOS_CLI_RUN = ("frontdoor-smoke", 7)    # the reference test's seed
 CHAOS_CLI_BOUND_S = 60.0
+# 10h: the trace, balance and graftlint CLIs through their main(argv) in this
+# process (a fresh one pays about 10 s for `import torch` on the card's host)
+TRACE_ATTR_SECS = 2.0           # the EC write burst `trace attribute` times
+CLI_TOOLS_BOUND_S = 60.0        # each command
 
 
 def lw_spec():
@@ -4819,7 +4891,7 @@ def phase_race(card: str, reset_counts, gf8_mods, dev=None):
     ``dev`` (``cuda:0`` unless named) under the perturbed loop with the
     race tracker armed, a counted window; the verdict passes and the
     tracker convicts nothing, B1 launches and B2 does not.  Returns the
-    B1 and B2 launches."""
+    B1 and B2 launches and the verdict's replay key."""
     import torch
 
     from ceph_tpu_torch.analysis import racecheck
@@ -4849,7 +4921,7 @@ def phase_race(card: str, reset_counts, gf8_mods, dev=None):
     if b1 <= 0 or b2:
         raise AssertionError(f"race run: launched B1 {b1}, B2 {b2} times; "
                              "expected B1 only")
-    return b1, b2
+    return b1, b2, verdict.replay_key()
 
 
 def phase_ramp(card: str, reset_counts, gf8_mods, dev=None):
@@ -5231,6 +5303,147 @@ def phase_chaos_cli(card: str, started):
                              "schedule prints")
 
 
+def cli_run(label: str, main, argv):
+    """``main(argv)`` of a CLI in this process, its standard output
+    captured: (exit code, output, wall s); a command past
+    ``CLI_TOOLS_BOUND_S`` fails the phase."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    wall = time.perf_counter() - t0
+    if wall > CLI_TOOLS_BOUND_S:
+        raise AssertionError(f"CLI tools: {label} took {wall:.3f} s, past "
+                             f"its {CLI_TOOLS_BOUND_S:g} s bound")
+    return rc, buf.getvalue(), wall
+
+
+def tree_daemons(nodes) -> set:
+    """Every daemon a span tree reaches."""
+    out = set()
+    for n in nodes:
+        out.add(n["daemon"])
+        out |= tree_daemons(n["children"])
+    return out
+
+
+def phase_cli_tools(card: str, reset_counts, gf8_mods, race_key,
+                    dev=None):
+    """Phase 10h: the port's trace, balance and graftlint CLIs as users
+    run them, through their ``main(argv)`` in this process with ``--device
+    cuda`` (``dev`` for a rehearsal), each its own counted window and each
+    on a fresh cluster: (1) ``trace attribute --secs 2 --json``, the
+    per-stage split of a reed_sol_van k2m1 write burst (B1), printed as a
+    table of (stage, seconds an op, share of the op's wall); (2) ``trace
+    demo --json``, whose op's span tree reaches all three OSDs; (3)
+    ``balance status`` and ``balance optimize`` on a replicated pool (no
+    EC kernel), the moves committed printed; (4) ``graftlint --race
+    batch-smoke --seeds 31``, whose verdict's replay key must equal 10c's
+    (``race_key``).  Every command exits 0.  Returns the B1 and B2
+    launches summed."""
+    import torch
+
+    from ceph_tpu_torch.analysis import racecheck
+    from ceph_tpu_torch.tools import balance as balance_cli
+    from ceph_tpu_torch.tools import graftlint as graftlint_cli
+    from ceph_tpu_torch.tools import trace as trace_cli
+
+    dev = dev or torch.device("cuda", 0)
+    devarg = ["--device", str(dev)]
+    b1_sum = b2_sum = 0
+
+    def window(label, main, argv, ec: bool):
+        nonlocal b1_sum, b2_sum
+        reset_counts()
+        rc, out, wall = cli_run(label, main, argv)
+        torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+        (b1, b1k), (b2, b2k) = oc_launches(gf8_mods)
+        log(f"CLI tools [{card}]: {label}: exit {rc}, wall {wall:.3f} s of "
+            f"its {CLI_TOOLS_BOUND_S:g} s bound; B1 launches {b1} ({b1k} "
+            f"kept), B2 launches {b2} ({b2k} kept)")
+        if rc != 0:
+            raise AssertionError(f"CLI tools: {label} exited {rc}: "
+                                 f"{out[-2000:]}")
+        if (b1 <= 0 if ec else b1) or b2:
+            raise AssertionError(f"CLI tools: {label} launched B1 {b1}, B2 "
+                                 f"{b2} times; expected "
+                                 f"{'B1 only' if ec else 'neither'}")
+        b1_sum += b1
+        b2_sum += b2
+        return out
+
+    out = window("trace attribute", trace_cli.main,
+                 ["attribute", "--secs", str(TRACE_ATTR_SECS), "--json"]
+                 + devarg, ec=True)
+    merged = json.loads(out)
+    ops, wall = merged["ops"], merged["measured_wall_s"]
+    table = [[stage, round(row["s"] / ops, 6), round(row["s"] / ops / wall, 4)]
+             for stage, row in merged["stages"].items()]
+    log(f"attribution [{card}]: " + json.dumps(
+        {"ops": ops, "measured_wall_s": wall,
+         "wall_coverage": merged.get("wall_coverage"),
+         "columns": ["stage", "s an op", "share of the op's wall"],
+         "stages": table}))
+    if merged.get("wall_coverage", 0.0) < 0.85:
+        raise AssertionError(f"trace attribute: wall coverage "
+                             f"{merged.get('wall_coverage')} below 0.85")
+
+    out = window("trace demo", trace_cli.main, ["demo", "--json"] + devarg,
+                 ec=True)
+    demo = json.loads(out)
+    reached = tree_daemons(demo["tree"])
+    log(f"CLI tools [{card}]: trace demo: trace {demo['trace_id']}, the "
+        f"span tree reaches {sorted(reached)}, stages "
+        f"{sorted(demo['stages'] or {})}")
+    if not {f"osd.{i}" for i in range(3)} <= reached:
+        raise AssertionError(f"trace demo: the span tree reaches {reached}, "
+                             "not all three OSDs")
+
+    out = window("balance status", balance_cli.main,
+                 ["status", "--json"] + devarg, ec=False)
+    status = json.loads(out)
+    if status["enabled"] or status["reshape_ops"]:
+        raise AssertionError(f"balance status: {status}")
+    out = window("balance optimize", balance_cli.main,
+                 ["optimize", "--json"] + devarg, ec=False)
+    result = json.loads(out[:out.rindex("}") + 1])
+    log(f"CLI tools [{card}]: balance optimize: {result.get('moves')} moves "
+        f"committed at epoch {result.get('epoch')}, skew "
+        f"{result.get('skew_before')} -> {result.get('skew_after')}; "
+        f"{out.strip().splitlines()[-1]}")
+    if "commit_error" in result or not out.rstrip().endswith("moves"):
+        raise AssertionError(f"balance optimize: {out[-2000:]}")
+
+    verdicts = []
+    real = racecheck.race_run
+
+    def keep(*args, **kwargs):
+        got = real(*args, **kwargs)
+        verdicts.append(got[0])
+        return got
+
+    racecheck.race_run = keep
+    try:
+        out = window("graftlint --race", graftlint_cli.main,
+                     ["--race", RACE_RUN[0], "--seeds", str(RACE_RUN[1]),
+                      "--json"] + devarg, ec=True)
+    finally:
+        racecheck.race_run = real
+    run = json.loads(out)["runs"][0]
+    log(f"CLI tools [{card}]: graftlint --race {RACE_RUN[0]} --seeds "
+        f"{RACE_RUN[1]}: {'PASS' if run['passed'] else 'FAIL'}, "
+        f"{len(run['race']['findings'])} convictions ({run['race']['reads']} "
+        f"reads, {run['race']['writes']} writes, {run['race']['ticks']} "
+        f"ticks), trace {run['trace_digest'][:16]}; replay key "
+        f"{'equals' if verdicts[0].replay_key() == race_key else 'differs from'}"
+        f" 10c's")
+    if verdicts[0].replay_key() != race_key:
+        raise AssertionError("graftlint --race: the replay key is not 10c's")
+    return b1_sum, b2_sum
+
+
 def card_name() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5492,10 +5705,11 @@ def main() -> int:
     # the chaos runner and the race run, each scenario on a fresh cluster
     # and its own counted window (10a, the load window, ran on phase 9's
     # cluster, its window among phase 9's)
-    for run in (phase_chaos, phase_race):
-        ch_b1, ch_b2 = run(card, reset_counts, (gf8_cuda, gf8_bytes_cuda))
-        b1_launches += ch_b1
-        b2_launches += ch_b2
+    ch_b1, ch_b2 = phase_chaos(card, reset_counts, (gf8_cuda, gf8_bytes_cuda))
+    race_b1, race_b2, race_key = phase_race(card, reset_counts,
+                                            (gf8_cuda, gf8_bytes_cuda))
+    b1_launches += ch_b1 + race_b1
+    b2_launches += ch_b2 + race_b2
     mark("chaos and race runs")
     # the ramp, the soak and the elastic run, each on a fresh cluster and
     # its own counted window; the load and chaos CLIs in processes of
@@ -5514,8 +5728,15 @@ def main() -> int:
     b2_launches += ch_b2
     phase_chaos_cli(card, cli)
     mark("ramp, soak, load CLI, elastic run and chaos CLI")
+    # 10h: the trace, balance and graftlint CLIs in this process
+    ch_b1, ch_b2 = phase_cli_tools(card, reset_counts,
+                                   (gf8_cuda, gf8_bytes_cuda), race_key)
+    b1_launches += ch_b1
+    b2_launches += ch_b2
+    mark("trace, balance and graftlint CLIs")
+    oc_end = dict(marks)["OSD cluster"]
     log(f"phase clock (so far): phase 10 "
-        f"{load_s + marks[-1][1] - marks[-3][1]:.3f} s (the load window "
+        f"{load_s + marks[-1][1] - oc_end:.3f} s (the load window "
         f"{load_s:.3f} s inside the OSD cluster's)")
 
     phase_one_launch(cauchy, cdata)

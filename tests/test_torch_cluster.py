@@ -959,3 +959,53 @@ def test_a_cluster_holds_the_shared_placements_while_it_runs():
             await cluster.stop()
 
     run(scenario())
+
+
+def test_a_down_peers_stamp_does_not_accuse_its_next_life():
+    """A deliberate difference from the reference (ROADMAP §C10): a peer
+    that is down in the map leaves every OSD's heartbeat set, whoever
+    reported it, so the stamp of its last reply cannot report its next
+    life as failed the moment that life is up.  (The reference keeps the
+    stamp of a peer it did not report, and reports the revived daemon at
+    its first heartbeat.)"""
+
+    async def until(pred, what, bound=20.0):
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + bound
+        while not pred():
+            if loop.time() > deadline:
+                raise TimeoutError(what)
+            await asyncio.sleep(0.01)
+
+    async def scenario():
+        cfg = PORT.imp("cluster.vstart._fast_config")()
+        cluster = await PORT.imp("cluster.vstart.start_cluster")(
+            3, config=cfg)
+        try:
+            o0 = cluster.osds[0]
+            await until(lambda: 2 in o0._hb_last, "osd.0 tracks osd.2")
+            await cluster.kill_osd(2)
+            await until(lambda: not cluster.mon.osdmap.osd_up[2],
+                        "osd.2 down")
+            # osd.0's stamp of osd.2 as a long outage leaves it when
+            # another OSD's report marked osd.2 down first
+            o0._hb_last[2] = o0.clock.monotonic() - 1000.0
+            await until(lambda: 2 not in o0._hb_last,
+                        "osd.0 forgets the down peer")
+            reports = o0.perf.get("osd_failure_reports")
+            downs = cluster.mon.perf.get("mon_osd_marked_down")
+            await cluster.revive_osd(2, with_store=True)
+            await until(lambda: cluster.mon.osdmap.osd_up[2], "osd.2 up")
+            t = o0.clock.monotonic()
+            # a reply from the new life, well after the heartbeat that
+            # first saw it up
+            await until(lambda: o0._hb_last.get(2, 0.0) >
+                        t + 4 * cfg.osd_heartbeat_interval,
+                        "osd.0 hears the new life")
+            return (o0.perf.get("osd_failure_reports") - reports,
+                    cluster.mon.perf.get("mon_osd_marked_down") - downs,
+                    bool(cluster.mon.osdmap.osd_up[2]))
+        finally:
+            await cluster.stop()
+
+    assert run(scenario()) == (0, 0, True)

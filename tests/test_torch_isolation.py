@@ -25,7 +25,10 @@
   chaos and blackbox CLIs;
 - ``run_frontdoor``, ``run_elastic`` and the chaos CLI's ``run``, asked
   for no device, boot their cluster on CUDA, and without a card raise
-  (the CLI exits 2) before anything boots.
+  (the CLI exits 2) before anything boots; so do the balance CLI, the
+  trace CLI's ``demo`` and ``attribute`` and graftlint's ``--race``,
+  whose modules, with the static-analysis package, also import neither
+  JAX nor ``ceph_tpu``.
 """
 
 import os
@@ -114,6 +117,25 @@ def test_import_leaves_jax_and_reference_out():
         "import ceph_tpu_torch.tools.load\n"
         "import ceph_tpu_torch.chaos.frontdoor, ceph_tpu_torch.chaos.balance\n"
         "import ceph_tpu_torch.tools.chaos, ceph_tpu_torch.tools.blackbox\n"
+        "import ceph_tpu_torch.tools.balance, ceph_tpu_torch.tools.trace\n"
+        "import ceph_tpu_torch.tools.graftlint\n"
+        "import ceph_tpu_torch.analysis.astutil\n"
+        "import ceph_tpu_torch.analysis.baseline\n"
+        "import ceph_tpu_torch.analysis.engine\n"
+        "import ceph_tpu_torch.analysis.lockgraph\n"
+        "import ceph_tpu_torch.analysis.symmetry\n"
+        "import ceph_tpu_torch.analysis.asyncio_rules\n"
+        "import ceph_tpu_torch.analysis.async_errors\n"
+        "import ceph_tpu_torch.analysis.taskspawn\n"
+        "import ceph_tpu_torch.analysis.rpc_timeout\n"
+        "import ceph_tpu_torch.analysis.testsleep\n"
+        "import ceph_tpu_torch.analysis.awaitrace\n"
+        "import ceph_tpu_torch.analysis.device_dispatch\n"
+        "import ceph_tpu_torch.analysis.planar_hygiene\n"
+        "import ceph_tpu_torch.analysis.torch_hygiene\n"
+        "from ceph_tpu_torch.analysis import engine as lint\n"
+        "assert lint.all_rules() and lint.load_modules(\n"
+        "    lint.default_paths()[:5])[0]\n"
         "import asyncio\n"
         "from ceph_tpu_torch.cluster.vstart import start_cluster\n"
         "async def io():\n"
@@ -691,17 +713,39 @@ def _chaos_entry_points():
             raise RuntimeError("no CUDA card: the CLI exited 2")
         return rc
 
+    def tool(main, argv):
+        def call(**kw):
+            rc = main(argv + (["--device", kw["device"]] if "device" in kw
+                              else []))
+            if rc == 2:
+                raise RuntimeError("no CUDA card: the CLI exited 2")
+            return rc
+
+        return call
+
+    from ceph_tpu_torch.tools import balance as balance_cli
+    from ceph_tpu_torch.tools import graftlint as graftlint_cli
+    from ceph_tpu_torch.tools import trace as trace_cli
+
     fd = frontdoor_scenarios(1.0)["frontdoor-smoke"]
     el = elastic_scenarios(0.03)["expand-drain-smoke"]
     return {
         "run_frontdoor": lambda **kw: run(run_frontdoor(fd, 7, **kw)),
         "run_elastic": lambda **kw: run(run_elastic(el, 7, **kw)),
         "tools.chaos run": cli,
+        "tools.balance status": tool(balance_cli.main, ["status"]),
+        "tools.trace demo": tool(trace_cli.main, ["demo"]),
+        "tools.trace attribute": tool(trace_cli.main, ["attribute"]),
+        "tools.graftlint --race": tool(
+            graftlint_cli.main, ["--race", "batch-smoke", "--seeds", "1"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["run_frontdoor", "run_elastic",
-                                   "tools.chaos run"])
+                                   "tools.chaos run", "tools.balance status",
+                                   "tools.trace demo",
+                                   "tools.trace attribute",
+                                   "tools.graftlint --race"])
 def test_chaos_runners_and_cli_default_to_cuda_and_refuse_cpu_fallback(
         entry, monkeypatch):
     """With no ``device`` the cluster boots on the CUDA card; without a

@@ -18,7 +18,8 @@ across field by field with ``port_map``.  Checked, exactly:
     failover in the middle of a pool create, a peon forwarding commands,
     the cluster log service;
 (e) boot, failure reports coalescing into one epoch and beacon-grace
-    mark-down, from stub OSD messengers;
+    mark-down, from stub OSD messengers; a duplicate boot of a life
+    already up commits no epoch in the port (a deliberate difference);
 (f) a store resume; and a ``device="cpu"`` peon that takes in maps sent
     from a CUDA map and never touches CUDA.
 
@@ -884,6 +885,72 @@ def test_boot_failures_and_beacon_grace_equal_reference():
     assert downs == [[3, 4, 5], [2]]
     assert counters["mon_failures_coalesced"] == 2
     assert counters["mon_osd_boot"] == 6
+
+
+async def duplicate_boots(pkg, dups=5):
+    """Three stub OSDs boot; OSD 0 then sends ``dups`` more boots of the
+    same life (what a daemon marked down sends on every map that still
+    shows it down), OSD 1 boots a new life, and OSD 2, failed, boots its
+    same life again.  Returns the epochs each step committed and the
+    up set."""
+    cfg = fast_config(pkg)
+    mons, addrs = await start_quorum(pkg, 1, config=cfg,
+                                     osdmap=fresh_map(pkg, 1, 3, up=False))
+    mon = mons[0]
+    osds = await stub_osds(pkg, range(3), cfg)
+
+    def boot(i, instance):
+        return osds[i].send_message(pkg.M.MOSDBoot(
+            osd_id=i, addr=osds[i].my_addr, instance=instance), addrs[0])
+
+    def settled(boots):
+        return lambda: mon.perf.get("mon_osd_boot") \
+            + mon.perf.get("mon_osd_boot_dups") == boots \
+            and not mon._map_mutex._lock.locked()
+
+    try:
+        for i in range(3):
+            await boot(i, 100 + i)
+        await wait_for(lambda: all(mon.osdmap.osd_up), "boot")
+        await wait_for(settled(3), "boots settled")
+        steps = []
+        e0 = mon.osdmap.epoch
+        for _ in range(dups):
+            await boot(0, 100)
+        await wait_for(settled(3 + dups), "duplicate boots")
+        steps.append(mon.osdmap.epoch - e0)
+        e0 = mon.osdmap.epoch
+        await boot(1, 201)
+        await wait_for(lambda: mon.perf.get("mon_osd_boot_fenced") == 1,
+                       "new life fenced")
+        await wait_for(settled(4 + dups), "new life booted")
+        steps.append(mon.osdmap.epoch - e0)
+        await osds[0].send_message(pkg.M.MOSDFailure(
+            failed_osd=2, reporter=0), addrs[0])
+        await wait_for(lambda: not mon.osdmap.osd_up[2], "failure")
+        e0 = mon.osdmap.epoch
+        await boot(2, 102)
+        await wait_for(lambda: mon.osdmap.osd_up[2], "reboot")
+        await wait_for(settled(5 + dups), "reboot settled")
+        # the boot's own epoch at least (the tick may mark it out and in)
+        steps.append(mon.osdmap.epoch - e0 >= 1)
+        return steps, list(mon.osdmap.osd_up)
+    finally:
+        for msgr in osds.values():
+            await msgr.shutdown()
+        await stop_all(mons)
+
+
+def test_duplicate_boot_commits_no_epoch():
+    """A deliberate difference from the reference (ROADMAP §C10): the
+    port's mon drops a boot of the daemon life it already has up, as
+    Ceph's ``preprocess_boot`` does; the reference commits an epoch (and
+    a pg_temp mint) for each.  A new life and a down daemon's boot
+    commit as before, in both."""
+    port = run(duplicate_boots(PORT))
+    ref = run(duplicate_boots(REF))
+    assert port == ([0, 2, True], [True, True, True])
+    assert ref == ([5, 2, True], [True, True, True])
 
 
 # -- (f) store resume, and a CPU peon that never touches CUDA ------------------------
